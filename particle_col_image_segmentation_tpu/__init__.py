@@ -1,6 +1,6 @@
-"""particle_col_image_segmentation_tpu — a TPU-native microscopy segmentation framework.
+"""particle_col_image_segmentation_tpu — a JAX microscopy segmentation framework.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of
+A ground-up JAX/XLA rebuild of the capabilities of
 ``ssilverman16/particle_col_image_segmentation`` (reference mounted read-only at
 /root/reference): fluorescence-microscopy particle-colonization analysis.
 

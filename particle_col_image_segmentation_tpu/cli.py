@@ -19,12 +19,13 @@ import argparse
 import os
 import sys
 
+from particle_col_image_segmentation_tpu.utils.cache import enable_compile_cache
+
 # Persistent XLA compile cache: the fixpoint kernels are compile-heavy; cache
 # them across CLI invocations.
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_pcis")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0.5")
+enable_compile_cache()
 
-from particle_col_image_segmentation_tpu.config import AnalysisConfig, RefineConfig
+from particle_col_image_segmentation_tpu.config import AnalysisConfig, RefineConfig  # noqa: E402
 
 
 def _add_analysis_flags(p: argparse.ArgumentParser) -> None:

@@ -87,13 +87,10 @@ class AnalysisConfig:
     # Enforce the reference's hardcoded 2048×2048 plane shape
     # (tiff_analysis.py:734-737). Off by default so any square plane works.
     enforce_reference_shape: bool = False
-    # Fixpoint iteration budgets. Defaults converge on any realistic plane;
-    # pathological geometry (plane-spanning spirals) can exhaust them, which
-    # is DETECTED (host boundaries raise / flag, never silently wrong) —
-    # raise these to push through such planes. ccl_max_sweeps bounds the
-    # Pallas band-sweep down/up pairs; ccl_max_iters the XLA fixpoint
-    # rounds.
-    ccl_max_sweeps: int = 16
+    # CCL fixpoint budget (rounds). The default converges on any realistic
+    # plane; pathological geometry (plane-spanning spirals) can exhaust it,
+    # which is DETECTED (host boundaries raise / flag, never silently
+    # wrong) — raise it to push through such planes.
     ccl_max_iters: int = 64
     # Halo-exchange rounds for the DISTRIBUTED fixpoints (parallel.sharded:
     # CCL, rank propagation, dedup) when running space-sharded.  Validated
@@ -145,20 +142,16 @@ class RefineConfig:
     # claim key already holds ≥0.99 boundary IoU on the pipeline regime
     # (EDT-seeded markers inside their own basins); enable this for
     # plateaued/quantized probability maps with sparse or hand-placed
-    # markers, where it lifts parity from ~0.5 to ≥0.93 (docs/PERF.md).
+    # markers, where it lifts parity from ~0.5 to ≥0.93 (PERF.md).
     # Composes with --space-parallel as DATA parallelism only: planes
     # distribute across devices, each flooding single-device (the tunneled
     # key's per-sweep basin segment-min broadcasts have no halo-exchange
     # schedule), so each plane must fit one chip.
     tunnel_basins: bool = False
-    # Watershed fixpoint budgets.  ``watershed_max_iters`` bounds the XLA
-    # Jacobi loops; ``watershed_max_sweeps`` bounds the Pallas down+up
-    # band-sweep pairs (each sweep relaxes up to 256 px per band visit, so
-    # 16 sweeps is a far larger budget than 16 Jacobi iterations).  A
-    # plane that exhausts its budget surfaces converged=False (the stack
-    # refine raises) — raise the matching knob to recover, never silently.
+    # Watershed fixpoint budget: bounds each Jacobi phase.  A plane that
+    # exhausts it surfaces converged=False (the stack refine raises) —
+    # raise it to recover, never silently.
     watershed_max_iters: int = 1024
-    watershed_max_sweeps: int = 16
 
 
 @dataclasses.dataclass(frozen=True)

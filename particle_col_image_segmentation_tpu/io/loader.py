@@ -128,7 +128,7 @@ def batched_device_iterator(
     the consumer how many rows are real) so every step reuses one compiled
     shape.  ``sharding`` (e.g. NamedSharding over the mesh data axis) places
     the batch directly in its sharded layout.  ``pack`` ships label planes
-    as 4-bit nibbles (values < 16, even width) — half the PCIe/relay bytes;
+    as 4-bit nibbles (values < 16, even width) — half the host→device bytes;
     the consumer unpacks on device (io.loader.unpack_nibbles).
 
     ``on_error="skip"`` drops files whose decode fails (logged) instead of

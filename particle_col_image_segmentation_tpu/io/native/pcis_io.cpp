@@ -1,4 +1,4 @@
-// pcis_io — native host-side I/O for the TPU segmentation framework.
+// pcis_io — native host-side I/O for the segmentation framework.
 //
 // The reference's I/O is tifffile/libtiff via Python (split_zstack.py:50,64);
 // here the hot path (grayscale TIFF planes feeding the device loader) is a

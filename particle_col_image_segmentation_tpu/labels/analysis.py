@@ -22,17 +22,13 @@ from particle_col_image_segmentation_tpu.config import AnalysisConfig, CELL_TYPE
 from particle_col_image_segmentation_tpu.ops import (
     RegionTable,
     centroids_int,
-    connected_components_auto,
+    compact_labels,
+    connected_components,
     dilate_disk,
-)
-from particle_col_image_segmentation_tpu.ops.filters_tiles import (
-    median_label_filter_auto,
-)
-from particle_col_image_segmentation_tpu.ops.ccl import compact_labels_auto
-from particle_col_image_segmentation_tpu.ops.regionprops_tiles import (
-    region_props_auto,
-    region_sums_mxu,
-    table_lookup_auto,
+    edt_sq,
+    median_label_filter,
+    region_props,
+    table_lookup,
 )
 
 __all__ = [
@@ -75,47 +71,47 @@ def _particle_value(cell_types):
 
 @partial(jax.jit, static_argnames=("cfg", "denoise", "particle_val"))
 def _stage_segment(img, cfg: AnalysisConfig, denoise: bool, particle_val: int):
-    den = (
-        median_label_filter_auto(img, cfg.denoise_size, cfg.num_classes)
-        if denoise
-        else img
-    )
-    raw, conv_ccl = connected_components_auto(
-        den, background=None, num_classes=cfg.num_classes, with_flag=True,
-        max_iters=cfg.ccl_max_iters, max_sweeps=cfg.ccl_max_sweeps,
-    )
-    seg, num, conv_cmp = compact_labels_auto(
-        raw, cfg.max_regions, val=den, with_flag=True,
-        max_sweeps=cfg.ccl_max_sweeps,
-    )
-    table = region_props_auto(
-        seg, den, cfg.max_regions, val_bound=cfg.num_classes - 1
-    )
+    with jax.named_scope("median"):
+        den = (
+            median_label_filter(img, cfg.denoise_size, cfg.num_classes)
+            if denoise
+            else img
+        )
+    with jax.named_scope("ccl"):
+        raw, converged = connected_components(
+            den, background=None, num_classes=cfg.num_classes,
+            with_flag=True, max_iters=cfg.ccl_max_iters,
+        )
+    with jax.named_scope("compact"):
+        seg, num = compact_labels(raw, cfg.max_regions)
+    with jax.named_scope("tables"):
+        table = region_props(seg, den, cfg.max_regions)
     # per-plane sum so the stage is batch-polymorphic ([H,W] and [B,H,W])
     particle_area = jnp.sum((den == particle_val).astype(jnp.int32),
                             axis=(-2, -1))
-    return den, seg, num, table, particle_area, conv_ccl & conv_cmp
+    return den, seg, num, table, particle_area, converged
 
 
 @partial(jax.jit, static_argnames=("cfg", "particle_val", "strain_vals"))
+@jax.named_scope("fill")
 def _stage_fill(den, cfg: AnalysisConfig, particle_val: int, strain_vals):
     # Sequential over strains on purpose: pixels absorbed for strain k expand
     # the particle mask seen by strain k+1, exactly as the reference's loop
-    # reassigns ds_arr each iteration (tiff_analysis.py:931-1015).
-    from particle_col_image_segmentation_tpu.ops.fill_tiles import (
-        particle_fill_step_auto,
-    )
-
+    # reassigns ds_arr each iteration (tiff_analysis.py:931-1015).  Each
+    # strain's overlap is one capped EDT of the particle mask, thresholded
+    # with the reference's two OR-ed tests (squared-int exact).
     cap = max(cfg.dilation_radius, cfg.distance_threshold)
     dt2 = cfg.distance_threshold * cfg.distance_threshold
     dr2 = cfg.dilation_radius * cfg.dilation_radius
     filled = den
     overlaps = []
     for sval in strain_vals:
-        filled, ov = particle_fill_step_auto(
-            filled, particle_val, sval, cap, dt2, dr2
+        d2 = edt_sq(filled == particle_val, cap=cap)
+        overlap = (filled == sval) & ((d2 < dt2) | (d2 <= dr2))
+        overlaps.append(jnp.sum(overlap.astype(jnp.int32), axis=(-2, -1)))
+        filled = jnp.where(
+            overlap, jnp.asarray(particle_val, filled.dtype), filled
         )
-        overlaps.append(ov)
     # [n_strains] for [H,W] input, [n_strains, B] for [B,H,W]
     overlap_counts = (
         jnp.stack(overlaps)
@@ -126,6 +122,7 @@ def _stage_fill(den, cfg: AnalysisConfig, particle_val: int, strain_vals):
 
 
 @partial(jax.jit, static_argnames=("cfg", "strain_vals"))
+@jax.named_scope("merge")
 def _stage_merge(den, table: RegionTable, cfg: AnalysisConfig, strain_vals):
     # For each context (each strain's class mask, then the union of all
     # strain masks): dilate by disk(r), label, and read the component root
@@ -144,12 +141,11 @@ def _stage_merge(den, table: RegionTable, cfg: AnalysisConfig, strain_vals):
     # background=None keeps the CCL on the uint8 value path (bg pixels get
     # inert labels); centroids off the dilated mask map to -1 below, exactly
     # as background=0's -1 labels did
-    ctx_raw, conv = connected_components_auto(
+    ctx_raw, conv = connected_components(
         dil.astype(jnp.uint8), background=None, num_classes=2, with_flag=True,
-        max_iters=cfg.ccl_max_iters, max_sweeps=cfg.ccl_max_sweeps,
+        max_iters=cfg.ccl_max_iters,
     )
-    # flat take_along_axis: a 1-D gather per context lowers far better on
-    # TPU than [:, icy, icx] advanced indexing (batched 2-D gather)
+    # one flat 1-D gather per context
     S = ctx_raw.shape[0]
     flat_idx = jnp.broadcast_to((icy * W + icx)[None, :], (S, icy.shape[0]))
     g = jnp.take_along_axis(ctx_raw.reshape(S, H * W), flat_idx, axis=-1)
@@ -160,6 +156,7 @@ def _stage_merge(den, table: RegionTable, cfg: AnalysisConfig, strain_vals):
 
 
 @partial(jax.jit, static_argnames=("cfg", "strain_vals"))
+@jax.named_scope("merge")
 def _stage_merge_batch(den, table: RegionTable, cfg: AnalysisConfig,
                        strain_vals):
     """_stage_merge for a [B, H, W] stack: the S·B context planes label in
@@ -177,9 +174,9 @@ def _stage_merge_batch(den, table: RegionTable, cfg: AnalysisConfig,
     S = ctx_masks.shape[0]
     flat = ctx_masks.reshape(S * B, H, W)
     dil = dilate_disk(flat, cfg.merge_disk_radius)
-    ctx_raw, conv = connected_components_auto(
+    ctx_raw, conv = connected_components(
         dil.astype(jnp.uint8), background=None, num_classes=2, with_flag=True,
-        max_iters=cfg.ccl_max_iters, max_sweeps=cfg.ccl_max_sweeps,
+        max_iters=cfg.ccl_max_iters,
     )
     R1 = icy.shape[-1]
     flat_idx = jnp.broadcast_to(
@@ -384,6 +381,7 @@ def analyze_plane_device_sharded(
 
 
 @partial(jax.jit, static_argnames=("cfg",))
+@jax.named_scope("dedup")
 def dapi_dedup_device(
     dapi: jnp.ndarray, other: jnp.ndarray, cfg: AnalysisConfig
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
@@ -400,34 +398,18 @@ def dapi_dedup_device(
     # background=None: bg pixels form (inert) labeled components too, which
     # keeps the whole CCL on the cheap uint8 value path — the removal test
     # is masked by dapi_mask below, so bg rows in the tables never act
-    raw, conv_ccl = connected_components_auto(
+    raw, converged = connected_components(
         dapi_mask.astype(jnp.uint8), background=None, num_classes=2,
         with_flag=True, max_iters=cfg.ccl_max_iters,
-        max_sweeps=cfg.ccl_max_sweeps,
     )
-    seg, _, conv_cmp = compact_labels_auto(
-        raw, cfg.max_regions, val=dapi_mask.astype(jnp.uint8), with_flag=True,
-        max_sweeps=cfg.ccl_max_sweeps,
-    )
+    seg, _ = compact_labels(raw, cfg.max_regions)
     R = cfg.max_regions + 1
-    on_tpu = jax.default_backend() not in ("cpu", "gpu")
-    H, W = dapi.shape[-2:]
-    # same gating as region_props_auto: the kernel chunks rows by
-    # rows_per_chunk (default 32), so H must divide by the chunk we pick
-    # and W by the lane granularity — H % 8 alone crashed on e.g. 1040²
-    if on_tpu and H % 8 == 0 and W % 8 == 0:
-        rpc = 32 if (H % 32 == 0 and W % 32 == 0) else 8
-        area, ov = region_sums_mxu(
-            seg, other_mask.astype(jnp.int32), cfg.max_regions,
-            rows_per_chunk=rpc, val_bound=1,
-        )
-    else:
-        ids = seg.ravel()
-        area = jax.ops.segment_sum(jnp.ones_like(ids), ids, num_segments=R)
-        ov = jax.ops.segment_sum(
-            other_mask.ravel().astype(jnp.int32), ids, num_segments=R
-        )
+    ids = seg.ravel()
+    area = jax.ops.segment_sum(jnp.ones_like(ids), ids, num_segments=R)
+    ov = jax.ops.segment_sum(
+        other_mask.ravel().astype(jnp.int32), ids, num_segments=R
+    )
     frac = ov.astype(jnp.float32) / jnp.maximum(area, 1).astype(jnp.float32)
     remove = (frac > cfg.dapi_overlap_threshold) & (jnp.arange(R) > 0)
-    remove_px = (table_lookup_auto(seg, remove.astype(jnp.int32)) > 0) & dapi_mask
-    return jnp.where(remove_px, jnp.uint8(2), dapi), conv_ccl & conv_cmp
+    remove_px = (table_lookup(seg, remove.astype(jnp.int32)) > 0) & dapi_mask
+    return jnp.where(remove_px, jnp.uint8(2), dapi), converged

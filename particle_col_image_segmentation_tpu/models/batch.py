@@ -20,13 +20,11 @@ import numpy as np
 
 from particle_col_image_segmentation_tpu.config import AnalysisConfig, DEFAULT_CONFIG
 from particle_col_image_segmentation_tpu.io.loader import batched_device_iterator
-from particle_col_image_segmentation_tpu.ops import connected_components_auto
-from particle_col_image_segmentation_tpu.ops.ccl import compact_labels_auto
-from particle_col_image_segmentation_tpu.ops.filters_tiles import (
-    median_label_filter_auto,
-)
-from particle_col_image_segmentation_tpu.ops.regionprops_tiles import (
-    region_counts_auto,
+from particle_col_image_segmentation_tpu.ops import (
+    compact_labels,
+    connected_components,
+    median_label_filter,
+    region_counts,
 )
 from particle_col_image_segmentation_tpu.utils.logging import get_logger
 from particle_col_image_segmentation_tpu.utils.profiling import stage
@@ -112,24 +110,20 @@ def fused_segment_batch(
         from particle_col_image_segmentation_tpu.io.loader import unpack_nibbles
 
         imgs = unpack_nibbles(imgs, jnp.uint8)
-    den = median_label_filter_auto(imgs, cfg.denoise_size, cfg.num_classes)
-    raw, conv_ccl = connected_components_auto(
-        den, background=None, num_classes=cfg.num_classes, with_flag=True,
-        max_iters=cfg.ccl_max_iters, max_sweeps=cfg.ccl_max_sweeps,
-    )
-    # gather-free compaction + MXU histogram tables on TPU (scatter/gather
-    # fallbacks elsewhere); both batched over the leading axis in one launch
-    seg, num, conv_cmp = compact_labels_auto(
-        raw, cfg.max_regions, val=den, with_flag=True,
-        max_sweeps=cfg.ccl_max_sweeps,
-    )
-    areas, classes = region_counts_auto(
-        seg, den, cfg.max_regions, val_bound=cfg.num_classes - 1
-    )
+    with jax.named_scope("median"):
+        den = median_label_filter(imgs, cfg.denoise_size, cfg.num_classes)
+    with jax.named_scope("ccl"):
+        raw, converged = connected_components(  # converged: per plane [B]
+            den, background=None, num_classes=cfg.num_classes,
+            with_flag=True, max_iters=cfg.ccl_max_iters,
+        )
+    with jax.named_scope("compact"):
+        seg, num = compact_labels(raw, cfg.max_regions)
+    with jax.named_scope("tables"):
+        areas, classes = region_counts(seg, den, cfg.max_regions)
     class_px, particle_px, cell_px = _pixel_stats_from_tables(
         areas, classes, cfg, particle_val, cell_vals
     )
-    converged = conv_ccl & conv_cmp  # per plane [B]
     return seg, num, areas, classes, particle_px, cell_px, class_px, converged
 
 
@@ -140,10 +134,10 @@ def make_fused_segment_fn(
     """Data-parallel fused pass over a mesh: shard_map over the "data" axis,
     each device running the whole per-plane pipeline shard-locally.
 
-    This (not plain jit over a NamedSharding) is the multi-chip path: the
-    Pallas kernels inside are not auto-partitionable, and planes are
-    independent, so the correct decomposition is per-shard execution with
-    no cross-device communication at all.
+    This (not plain jit over a NamedSharding) is the multi-device path:
+    planes are independent, so the decomposition is per-shard execution
+    with no cross-device communication at all, and the fixpoint loops'
+    per-plane convergence tests never synchronize across devices.
     """
     from jax.sharding import PartitionSpec as P
 
@@ -316,9 +310,8 @@ def run_batch(
                     packed=pack_transfer,
                 )
         _, num, _, _, particle_px, cell_px, class_px, converged = out
-        # ONE host readback per batch: each np.asarray is a device sync
-        # (a full round trip on remote-attached chips), so the per-plane
-        # scalars ride a single packed [B, 4+C] array
+        # ONE host readback per batch: each np.asarray is a device sync,
+        # so the per-plane scalars ride a single packed [B, 4+C] array
         stats_dev = jnp.concatenate(
             [num[:, None], particle_px[:, None], cell_px[:, None],
              converged[:, None].astype(num.dtype), class_px],
@@ -335,10 +328,10 @@ def run_batch(
             converged = bool(conv_host[b])
             if not converged:
                 _log.error(
-                    "%s: CCL/compaction exhausted its iteration budget — "
+                    "%s: CCL exhausted its iteration budget — "
                     "stats INVALID for this plane; not marking done "
-                    "(pathological geometry; raise the sweep budgets in "
-                    "ops.ccl/ccl_tiles)", path,
+                    "(pathological geometry; raise "
+                    "AnalysisConfig.ccl_max_iters)", path,
                 )
             overflow = int(num[b]) > cfg.max_regions
             if overflow:

@@ -355,7 +355,7 @@ class _BatchedDeviceOuts:
     (consume-once), so finished folders' buffers free immediately.  A
     whole-tree precompute held every batched ``PlaneDeviceOut`` (den +
     seg + filled + table ≈ 25 MB HBM per 2048² plane) live until its
-    folder was consumed — a few hundred planes exhausted a v5e's HBM.
+    folder was consumed — a few hundred planes exhausted device memory.
 
     Memory bound: at most ONE chunk is computed per ``get`` miss and
     entries drop as folders consume them, so live planes ≤ ``batch_planes``

@@ -24,16 +24,14 @@ import numpy as np
 
 from particle_col_image_segmentation_tpu.config import RefineConfig
 from particle_col_image_segmentation_tpu.ops import (
+    centroid_sums,
     centroids_f64,
-    compact_labels_auto,
-    connected_components_auto,
-    local_maxima_auto,
+    compact_labels,
+    connected_components,
+    edt_sq,
+    edt_sq_exact_auto,
+    local_maxima,
     watershed,
-    watershed_auto,
-)
-from particle_col_image_segmentation_tpu.ops.edt import edt_sq, edt_sq_exact_auto
-from particle_col_image_segmentation_tpu.ops.regionprops_tiles import (
-    centroid_sums_auto,
 )
 from particle_col_image_segmentation_tpu.ops.pairwise import (
     min_dist_to_set,
@@ -45,17 +43,12 @@ from particle_col_image_segmentation_tpu.ops.pairwise import (
 def refine_plane_device(
     boundary_map: jnp.ndarray, cfg: RefineConfig, max_regions: int = 4095
 ):
-    # default 4095 (not 4096): region tables hold max_regions+1 rows, and
-    # 4096 rows fill exactly 32 one-hot blocks of 128 in the MXU table
-    # kernels — 4097 would round the q one-hot up to 48 (64 after int8
-    # sublane tiling), ~1.5-2× the table matmul work for one unusable row
-    # (the same convention bench.py configs #1/#2 already use)
     """probability map [..., H, W] → (labels, markers, num_cells, table,
     distance).  Every stage is batch-polymorphic, so a [Z, H, W] stack
     floods all planes in ONE jit graph — the BASELINE config #3
-    "touching-particle stack" workload (measured 11× the per-plane launch
-    loop at [8, 512²] on v5e; each plane's labels are bit-identical to its
-    single-plane run)."""
+    "touching-particle stack" workload (each plane's labels are
+    bit-identical to its single-plane run).  Region tables hold
+    ``max_regions + 1`` rows (row 0 is background)."""
     binary_mask = boundary_map < cfg.boundary_threshold  # reference :44-45
     # reference :60: scipy edt(binary_mask) = distance of object pixels to
     # the nearest boundary pixel; our edt measures distance TO the feature
@@ -63,43 +56,42 @@ def refine_plane_device(
     # transform saturates deep regions into one plateau that local_maxima
     # would merge into a single giant marker (cfg.edt_cap opts into the
     # cheaper capped path for provably-shallow planes).
-    if cfg.edt_cap is None:
-        # certified-exact: capped fast path + runtime exactness certificate,
-        # lax.cond fallback to the full min-plus (bit-identical either way)
-        dsq = edt_sq_exact_auto(~binary_mask, probe_cap=cfg.edt_probe_cap)
-    else:
-        dsq = edt_sq(~binary_mask, cap=cfg.edt_cap)
-    distance = jnp.sqrt(dsq.astype(jnp.float32))
+    with jax.named_scope("edt"):
+        if cfg.edt_cap is None:
+            # certified-exact: capped fast path + runtime exactness
+            # certificate, lax.cond fallback to the full min-plus
+            # (bit-identical either way)
+            dsq = edt_sq_exact_auto(~binary_mask, probe_cap=cfg.edt_probe_cap)
+        else:
+            dsq = edt_sq(~binary_mask, cap=cfg.edt_cap)
+        distance = jnp.sqrt(dsq.astype(jnp.float32))
     # maxima of d² == maxima of d (sqrt is monotone), but int32 d² compares
     # are cheaper AND exact: once d exceeds ~2900 px (d² ≈ 8.4M, reachable
     # on the reference's 2048² planes), ADJACENT squared distances round to
     # the SAME f32 sqrt, merging plateaus scipy's f64 keeps distinct
-    maxima, conv_max = local_maxima_auto(dsq, with_flag=True)
-    raw, conv_ccl = connected_components_auto(
-        maxima.astype(jnp.uint8), background=0, num_classes=2, with_flag=True
-    )
-    markers, num, conv_cmp = compact_labels_auto(
-        raw, max_regions, val=maxima.astype(jnp.uint8), with_flag=True
-    )
-    if cfg.tunnel_basins:
-        # basin-contraction claim key (ops.watershed docstring) — XLA
-        # schedule only; segment-min broadcasts have no band-sweep analogue
+    with jax.named_scope("maxima"):
+        maxima, conv_max = local_maxima(dsq, with_flag=True)
+    with jax.named_scope("ccl"):
+        raw, conv_ccl = connected_components(
+            maxima.astype(jnp.uint8), background=0, num_classes=2,
+            with_flag=True,
+        )
+    with jax.named_scope("compact"):
+        markers, num = compact_labels(raw, max_regions)
+    with jax.named_scope("watershed"):
+        # tunnel_basins: basin-contraction claim key (ops.watershed
+        # docstring)
         labels, conv_ws = watershed(
             boundary_map.astype(jnp.float32), markers, binary_mask,
-            max_iters=cfg.watershed_max_iters,
-            with_flag=True, tunnel_basins=True,
+            max_iters=cfg.watershed_max_iters, with_flag=True,
+            tunnel_basins=cfg.tunnel_basins,
         )
-    else:
-        labels, conv_ws = watershed_auto(
-            boundary_map.astype(jnp.float32), markers, binary_mask,
-            with_flag=True, max_iters=cfg.watershed_max_iters,
-            max_sweeps=cfg.watershed_max_sweeps,
-        )
-    # the refine outputs read only area + centroid sums (cells are all
-    # class 1) — the 5-column CentroidTable skips the value channel, bbox
-    # extremes, and the transposed pass of the full RegionTable
-    table = centroid_sums_auto(labels, max_regions)
-    converged = conv_max & conv_ccl & conv_cmp & conv_ws
+    with jax.named_scope("tables"):
+        # the refine outputs read only area + centroid sums (cells are all
+        # class 1) — the 5-column CentroidTable skips the value channel
+        # and the bbox extremes of the full RegionTable
+        table = centroid_sums(labels, max_regions)
+    converged = conv_max & conv_ccl & conv_ws
     return labels, markers, num, table, distance, converged
 
 
@@ -363,15 +355,12 @@ def _check_tunnel_chunk_fits(plane_shape, planes_per_device, device) -> None:
     alternatives instead."""
     H, W = plane_shape
     need = H * W * planes_per_device * _TUNNEL_BYTES_PER_PX
-    limit = None
-    try:
-        stats = device.memory_stats()
-        if stats:
-            limit = stats.get("bytes_limit")
-    except Exception:
-        pass
+    stats = device.memory_stats()
+    limit = stats.get("bytes_limit") if stats else None
     if limit is None:
-        limit = 16 * 1024**3  # v5e HBM
+        # the device reports no memory size (the CPU backend): there is
+        # nothing to check against, so the guard is skipped
+        return
     if need > limit:
         raise ValueError(
             f"tunnel_basins chunk ({planes_per_device} plane(s) of {H}x{W}, "

@@ -1,6 +1,6 @@
 """Single-channel plane analysis: device graph + host table assembly.
 
-The TPU analogue of reference tiff_analysis.py:627-671 / 742-789.  All pixel
+The device analogue of reference tiff_analysis.py:627-671 / 742-789.  All pixel
 work runs in one jit graph (labels/analysis.py); this module converts the
 fixed-shape device tables into the reference's dict-of-regions representation
 with identical ordering, classification, and statistics.
@@ -101,9 +101,10 @@ def analyze_plane(
     num = int(out.num)
     if not bool(out.converged):
         raise RuntimeError(
-            "CCL/compaction did not reach its fixpoint within the kernel "
-            "iteration budget — labels are invalid (pathological worst-case "
-            "geometry; raise the sweep budgets in ops.ccl/ccl_tiles)"
+            "CCL did not reach its fixpoint within the iteration budget — "
+            "labels are invalid (pathological worst-case geometry; raise "
+            "AnalysisConfig.ccl_max_iters, or sharded_max_iters on a space "
+            "mesh)"
         )
     if num > cfg.max_regions:
         raise ValueError(

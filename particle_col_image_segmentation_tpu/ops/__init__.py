@@ -4,9 +4,7 @@ from particle_col_image_segmentation_tpu.ops.filters import (  # noqa: F401
 )
 from particle_col_image_segmentation_tpu.ops.ccl import (  # noqa: F401
     compact_labels,
-    compact_labels_auto,
     connected_components,
-    connected_components_auto,
     label_image,
 )
 from particle_col_image_segmentation_tpu.ops.regionprops import (  # noqa: F401
@@ -15,7 +13,9 @@ from particle_col_image_segmentation_tpu.ops.regionprops import (  # noqa: F401
     centroid_sums,
     centroids_f64,
     centroids_int,
+    region_counts,
     region_props,
+    table_lookup,
 )
 from particle_col_image_segmentation_tpu.ops.edt import (  # noqa: F401
     edt,
@@ -31,19 +31,7 @@ from particle_col_image_segmentation_tpu.ops.morphology import (  # noqa: F401
     erode_disk,
     fill_holes,
     local_maxima,
-    local_maxima_auto,
     open_disk,
-)
-from particle_col_image_segmentation_tpu.ops.regionprops_tiles import (  # noqa: F401
-    centroid_sums_auto,
-    centroid_sums_mxu,
-    region_counts_auto,
-    region_counts_mxu,
-    region_props_auto,
-    region_sums_mxu,
-    region_table_mxu,
-    table_lookup_auto,
-    table_lookup_mxu,
 )
 from particle_col_image_segmentation_tpu.ops.threshold import (  # noqa: F401
     otsu_threshold,
@@ -51,5 +39,4 @@ from particle_col_image_segmentation_tpu.ops.threshold import (  # noqa: F401
 )
 from particle_col_image_segmentation_tpu.ops.watershed import (  # noqa: F401
     watershed,
-    watershed_auto,
 )

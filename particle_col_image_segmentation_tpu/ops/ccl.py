@@ -1,4 +1,4 @@
-"""Connected-component labeling on TPU.
+"""Connected-component labeling as an XLA fixpoint.
 
 Replaces the reference's skimage union-find CCL (call sites:
 tiff_analysis.py:744, 829, 260; refine_boundaries.py:63) with an iterative
@@ -8,7 +8,7 @@ min-label propagation that XLA compiles to pure vector work:
   repeat until fixpoint:
     1. 8-neighbor masked min        (bridges diagonals, one hop)
     2. row + column segmented scans (log-depth, propagates along runs)
-    3. pointer jumping  lab ← lab[lab]  ×2  (collapses long chains)
+    3. pointer jumping  lab ← min(lab, lab[lab])  (collapses long chains)
 
 The min over same-valued neighbors is a semilattice update, so the fixpoint is
 iteration-order independent (determinism by construction; SURVEY.md §5).
@@ -146,11 +146,9 @@ def connected_components(
         new = seg_min_scan_bidi(new, same_col, axis=-2)
         # Pointer jumping is only an accelerator — at the neighbor-min
         # fixpoint labels are already component-constant (min-update between
-        # every neighbor pair forces equality).  Random gathers are the most
-        # expensive step on TPU, so jump every 4th round only: worst-case
-        # chains still collapse log-fast, common blobs converge on scans
-        # alone.
-        new = jax.lax.cond(i % 4 == 3, _pointer_jump, lambda l: l, new)
+        # every neighbor pair forces equality), and the update is confluent,
+        # so jumping every round reaches the same fixpoint.
+        new = _pointer_jump(new)
         changed = jnp.any(new != lab, axis=(-2, -1))  # per plane
         return new, changed, i + 1
 
@@ -180,173 +178,30 @@ def compact_labels(
     gather, instead of a 4M-element sort-unique.
 
     Args:
-      raw: [H, W] output of connected_components (single plane).
+      raw: [..., H, W] output of connected_components; leading axes are
+        independent planes.
       max_regions: static capacity hint (kept in the signature so callers pin
         table sizes; ``num`` is always the true count — callers must check it
         against their capacity).
 
     Returns:
-      seg: [H, W] int32 ids — 0 for background (-1), 1..N in raster order of
-        each component's first pixel (skimage ordering).
-      num: true number of components (may exceed max_regions).
+      seg: [..., H, W] int32 ids — 0 for background (-1), 1..N in raster
+        order of each component's first pixel (skimage ordering).
+      num: [...] true number of components per plane (may exceed
+        max_regions).
     """
     del max_regions  # shape-independent now; kept for API stability
-    H, W = raw.shape
-    flat = raw.ravel()
+    H, W = raw.shape[-2:]
+    flat = raw.reshape(raw.shape[:-2] + (H * W,))
     lin = jnp.arange(H * W, dtype=jnp.int32)
     fg = flat >= 0
     is_root = (flat == lin) & fg
-    prefix = jnp.cumsum(is_root.astype(jnp.int32))  # rank of each root, 1-based
-    num = prefix[-1]
-    seg = jnp.where(fg, prefix[jnp.clip(flat, 0, H * W - 1)], 0)
-    return seg.reshape(H, W), num
-
-
-@partial(
-    jax.jit,
-    static_argnames=("max_regions", "tile", "interpret", "with_flag", "max_sweeps"),
-)
-def compact_labels_sweeps(
-    raw: jnp.ndarray,
-    max_regions: int,
-    tile: int = 64,
-    interpret: bool = False,
-    val: jnp.ndarray = None,
-    with_flag: bool = False,
-    max_sweeps: int = 16,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """compact_labels without the 4M-element gather (TPU band-sweep path).
-
-    ``prefix[flat]`` in compact_labels is a whole-plane random gather —
-    slower on TPU than the CCL that produced the labels.  This variant
-    computes the same ids gather-free:
-
-      1. root-rank image: rank[p] = #roots at-or-before p in raster order —
-         the within-row cumsum rides the MXU as ``is_root @ upper_tri``
-         (0/1 bf16 operands, f32 accumulation; counts ≤ W < 2²⁴, exact),
-         the across-row base is a cumsum over H scalars per plane;
-      2. seed L = rank at root pixels, +INF elsewhere, and min-propagate
-         through each component with the same Gauss-Seidel band sweeps as
-         the CCL itself (ops/ccl_tiles.min_propagate, value image = raw:
-         component-constant, so propagation never crosses components).
-
-    Ids are identical to compact_labels (rank of the component's root in
-    raster order, skimage ordering).  Accepts [H, W] or [B, H, W].
-
-    ``val``: optional value image to propagate through instead of ``raw`` —
-    any image whose neighbor-equality relation is "same component" works,
-    and the denoised uint8 class plane (for background=None labelings)
-    rides HBM at ¼ the traffic.  Pixels where raw < 0 never seed either way.
-    """
-    del max_regions
-    from particle_col_image_segmentation_tpu.ops.ccl_tiles import min_propagate
-
-    batched = raw.ndim == 3
-    raw3 = raw if batched else raw[None]
-    B, H, W = raw3.shape
-    # Seeding, ranks, and root counting all happen INSIDE the first down
-    # sweep (init="rank", ops/ccl_tiles._rank_init_kernel): a running root
-    # count in SMEM across the raster-ordered band grid replaces the
-    # whole-plane cumsum/einsum, and ``raw`` is read exactly once.
-    # Background (raw < 0) seeds 0 — it shares no value with fg, so 0 never
-    # leaks, and every non-fg pixel is non-INF from the start.  Propagated
-    # values can only ever be a component's OWN seed, so the fixpoint is
-    # reached exactly when no +INF remains (converge_on="inf" — no confirm
-    # sweep).
-    vimg = raw3 if val is None else val.reshape(raw3.shape)
-    res = min_propagate(
-        raw3, vimg, tile=tile, interpret=interpret, converge_on="inf",
-        init="rank", with_flag=with_flag, max_sweeps=max_sweeps,
-    )
-    seg, band_counts = res[0], res[1]
-    num = jnp.sum(band_counts, axis=-1)
-    if not batched:
-        seg, num = seg[0], num[0]
-    else:
-        num = num.reshape(raw.shape[:-2])
-    if with_flag:
-        conv = res[2]
-        return seg, num, (conv.reshape(raw.shape[:-2]) if batched else conv[0])
-    return seg, num
-
-
-def compact_labels_auto(
-    raw: jnp.ndarray, max_regions: int, val: jnp.ndarray = None,
-    with_flag: bool = False, max_sweeps: int = 16,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Backend dispatch: band-sweep compaction on TPU, gather path elsewhere.
-
-    ``with_flag=True`` appends a per-plane ``converged`` bool (the gather
-    path is non-iterative and always converged)."""
-    H, W = raw.shape[-2:]
-    tile = _pick_band_tile(H)
-    on_tpu = jax.default_backend() not in ("cpu", "gpu")
-    if on_tpu and tile is not None and W % 128 == 0:
-        return compact_labels_sweeps(
-            raw, max_regions, tile=tile, val=val, with_flag=with_flag,
-            max_sweeps=max_sweeps,
-        )
-    if raw.ndim == 3:
-        seg, num = jax.vmap(lambda r: compact_labels(r, max_regions))(raw)
-    else:
-        seg, num = compact_labels(raw, max_regions)
-    if with_flag:
-        return seg, num, jnp.ones(raw.shape[:-2], bool)
-    return seg, num
-
-
-def _pick_band_tile(H: int):
-    import os
-
-    override = os.environ.get("PCIS_BAND_TILE")  # tuning knob (scripts/)
-    if override and H % int(override) == 0:
-        return int(override)
-    # 128 needs the raised Mosaic scoped-vmem cap (ccl_tiles._VMEM_LIMIT)
-    # and measures ~2x faster than 64 at 2048x2048 on v5e (fewer, taller
-    # bands amortize per-band DMA + loop overhead)
-    for t in (128, 64, 32, 16, 8):
-        if H % t == 0:
-            return t
-    return None
-
-
-def connected_components_auto(
-    img: jnp.ndarray,
-    background: Optional[int] = None,
-    connectivity: int = 8,
-    num_classes: int = 8,
-    with_flag: bool = False,
-    max_iters: int = 64,
-    max_sweeps: int = 16,
-) -> jnp.ndarray:
-    """connected_components with automatic kernel selection.
-
-    On TPU backends, 2D (or leading-batched) planes with band-divisible
-    heights use the Pallas Gauss-Seidel band sweeps (ops/ccl_tiles.py,
-    ~7× faster); everything else falls back to the XLA fixpoint.  Both
-    produce identical labels.  ``with_flag=True`` appends a per-plane
-    ``converged`` bool — False means the kernel's iteration budget ran out
-    (pathological worst-case geometry) and the labels are invalid.
-    """
-    import jax as _jax
-
-    backend = _jax.default_backend()
-    H, W = img.shape[-2:]
-    tile = _pick_band_tile(H)
-    on_tpu = backend not in ("cpu", "gpu")
-    # band DMAs need lane-aligned widths (Mosaic memref slicing)
-    if tile is None or W % 128 != 0 or not on_tpu:
-        return connected_components(
-            img, background=background, connectivity=connectivity,
-            num_classes=num_classes, with_flag=with_flag,
-            max_iters=max_iters,
-        )
-    from particle_col_image_segmentation_tpu.ops.ccl_tiles import ccl_sweeps
-
-    return ccl_sweeps(
-        img, background=background, connectivity=connectivity, tile=tile,
-        with_flag=with_flag, max_sweeps=max_sweeps,
-    )
+    # rank of each root, 1-based
+    prefix = jnp.cumsum(is_root.astype(jnp.int32), axis=-1)
+    num = prefix[..., -1]
+    idx = jnp.clip(flat, 0, H * W - 1)
+    seg = jnp.where(fg, jnp.take_along_axis(prefix, idx, axis=-1), 0)
+    return seg.reshape(raw.shape), num
 
 
 def label_image(

@@ -2,12 +2,12 @@
 
 Replaces scipy.ndimage.distance_transform_edt at the reference call sites
 (tiff_analysis.py:996 — threshold at 2 px; refine_boundaries.py:60 — marker
-seeding) with a two-phase TPU-friendly transform:
+seeding) with a two-phase separable transform:
 
-  phase 1 (within each row, along the lane axis −1): capped distance to the
+  phase 1 (within each row, along the column axis −1): capped distance to the
     nearest feature pixel in the same ROW, via two log-depth directional
     scans;
-  phase 2 (across rows, along the sublane axis −2):
+  phase 2 (across rows, along the row axis −2):
     d²(r,c) = min over |dy| ≤ cap of dy² + dh(r+dy, c)², an unrolled
     2·cap+1-tap vector min over row-shifted planes.  This is the axis that
     needs the cap-row halo when spatially sharded (parallel/sharded.py).
@@ -40,8 +40,8 @@ def edt_sq(feature: jnp.ndarray, cap: int) -> jnp.ndarray:
     feature = feature.astype(bool)
     c1 = cap + 1
     # phase 1: per-ROW distance to the nearest feature in the same row.
-    # Small caps: 2·cap+1 direct lane taps beat anything (only distances
-    # ≤ cap matter, and each lane shift is a relayout).  Larger caps:
+    # Small caps: 2·cap+1 direct column taps beat anything (only distances
+    # ≤ cap matter).  Larger caps:
     # bounded log-DOUBLING min-plus — ⌈log2 c1⌉ single-shift rounds per
     # direction, vs the exact transform's full-width associative scans
     # (whose per-level tuple combines dominate the capped EDT's cost).
@@ -61,9 +61,7 @@ def edt_sq(feature: jnp.ndarray, cap: int) -> jnp.ndarray:
         )
     dh2 = (dh * dh).astype(jnp.int32)
 
-    # phase 2: min-plus over row offsets.  Shifting along the SUBLANE axis
-    # (-2) keeps lane layouts aligned on TPU, so the unrolled 2·cap+1 taps
-    # stay cheap; shifting along lanes would force a relayout per tap.
+    # phase 2: min-plus over row offsets, 2·cap+1 unrolled row-shifted taps.
     H = feature.shape[-2]
     inf = jnp.int32(c1 * c1)
     pad = [(0, 0)] * (feature.ndim - 2) + [(cap, cap), (0, 0)]
@@ -76,7 +74,7 @@ def edt_sq(feature: jnp.ndarray, cap: int) -> jnp.ndarray:
 
 
 def _doubling_dist(d0: jnp.ndarray, c1: int, backward: bool) -> jnp.ndarray:
-    """Bounded 1-D distance along the lane axis by log-doubling min-plus:
+    """Bounded 1-D distance along the column axis by log-doubling min-plus:
     after round k, ``d[i] = min_{0 ≤ s < 2^(k+1)} d0[i∓s] + s`` (the classic
     two-window recurrence ``d ← min(d, shift(d, 2^k) + 2^k)``), so
     ``⌈log2 c1⌉`` rounds cover every offset < c1; clamp handles the rest."""
@@ -196,12 +194,10 @@ def edt_sq_exact_auto(
     the O(cap·H·W) capped result IS the exact transform and the O(H²·W)
     min-plus never runs; otherwise a ``lax.cond`` falls back to
     ``edt_sq_exact`` from scratch.  Output is bit-identical to
-    ``edt_sq_exact`` either way (6.8 → ~1.5 ms at [16, 512²] on v5e).
+    ``edt_sq_exact`` either way.
     """
-    from particle_col_image_segmentation_tpu.ops.edt_tiles import edt_sq_auto
-
     feature = feature.astype(bool)
-    capped = edt_sq_auto(feature, cap=probe_cap)
+    capped = edt_sq(feature, cap=probe_cap)
     deep = jnp.any(capped > probe_cap * probe_cap)
     return jax.lax.cond(
         deep,

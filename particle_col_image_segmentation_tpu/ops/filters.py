@@ -4,7 +4,7 @@
 exactly for small-integer class images (reference call sites:
 tiff_analysis.py:122,643 — the 5×5 denoise on Ilastik label maps).
 
-TPU-first design: instead of a rank sort, the median of an integer window with
+Design: instead of a rank sort, the median of an integer window with
 values < K is recovered from cumulative class counts —
 
     median = #{ v < K-1 : count(window ≤ v) < ceil(n/2) }
@@ -47,7 +47,7 @@ def _threshold_packing(size: int, num_classes: int):
 def pack_thresholds(x: jnp.ndarray, group, bits: int) -> jnp.ndarray:
     """One packed indicator plane for a threshold group:
     ``Σ_pos (x ≤ v_pos) << (bits·pos)`` — shared by every median variant
-    (reduce_window, pre-padded valid sums, the Pallas band kernel) so the
+    (reduce_window and the pre-padded valid sums) so the
     packing scheme lives in exactly one place."""
     packed = None
     for pos, v in enumerate(group):
@@ -89,12 +89,12 @@ def _round_up(n: int, m: int) -> int:
 
 def _pad_symmetric_aligned(x: jnp.ndarray, half: int) -> jnp.ndarray:
     """Symmetric (scipy 'reflect') padding by ``half`` on the trailing two
-    axes, over-padded with zeros to lane/sublane-aligned sizes.
+    axes, over-padded with zeros to aligned sizes (rows to 8, columns to 128).
 
-    A plain jnp.pad(..., mode='symmetric') of a 2048² plane costs ~200 ms on
-    TPU (the 2052-wide result forces relayouts through every consumer);
-    padding to aligned sizes and writing the four reflected border strips in
-    place is ~20× faster and bit-identical within the VALID region.
+    Padding to aligned sizes and writing the four reflected border strips
+    in place keeps every consumer on an aligned 2-D layout (a plain
+    jnp.pad(..., mode='symmetric') of a 2048² plane is 2052 wide) and is
+    bit-identical within the VALID region.
     """
     H, W = x.shape[-2:]
     Hp = _round_up(H + 2 * half, 8)
@@ -122,7 +122,7 @@ def median_label_filter(img: jnp.ndarray, size: int = 5, num_classes: int = 8):
     odd ``size`` (the reference uses size=5).  Works on any [..., H, W] batch
     since all work is windowed along the trailing two axes.
 
-    TPU-first: median of an integer window = #{v : count(window ≤ v) < ⌈n/2⌉},
+    Median of an integer window = #{v : count(window ≤ v) < ⌈n/2⌉},
     with threshold indicators bit-packed into 5-bit fields of int32 planes
     (window counts ≤ size² < 32 — no carry between fields), so 7 thresholds
     ride TWO packed planes through one fused reduce_window instead of seven
@@ -138,9 +138,8 @@ def median_label_filter(img: jnp.ndarray, size: int = 5, num_classes: int = 8):
     xp = _pad_symmetric_aligned(x, half)
     le = jnp.stack([pack_thresholds(xp, group, bits) for group in groups])
     # trailing init-value padding keeps the window output the same aligned
-    # size as the input (a VALID output of width Wp−size+1 is lane-misaligned
-    # and forces relayouts in every consumer); rows [H:] / cols [W:] are
-    # garbage and sliced away.
+    # size as the input (a VALID output of width Wp−size+1 is misaligned);
+    # rows [H:] / cols [W:] are garbage and sliced away.
     counts = jax.lax.reduce_window(
         le,
         jnp.int32(0),
@@ -167,9 +166,8 @@ def gaussian_blur(img: jnp.ndarray, sigma: float) -> jnp.ndarray:
 
     x = img.astype(jnp.float32)
     H, W = x.shape[-2:]
-    # ONE aligned pad for both axes (a plain per-axis jnp.pad produces
-    # lane-misaligned intermediates — the ~20× relayout cost documented on
-    # _pad_symmetric_aligned); replicate borders written in place.  Edge
+    # ONE aligned pad for both axes (see _pad_symmetric_aligned);
+    # replicate borders written in place.  Edge
     # replication commutes with the per-axis convolutions, so the result is
     # bit-identical to pad-then-conv per axis (same k-order summation).
     Hp = _round_up(H + 2 * half, 8)

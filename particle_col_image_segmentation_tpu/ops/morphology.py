@@ -1,4 +1,4 @@
-"""Binary morphology on TPU: disk dilation/erosion, hole filling, local maxima.
+"""Binary morphology: disk dilation/erosion, hole filling, local maxima.
 
 Reference call sites: skimage binary_dilation with disk SEs r∈{2,20}
 (tiff_analysis.py:828,990), scipy binary_fill_holes (:880), skimage
@@ -17,6 +17,7 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
+from particle_col_image_segmentation_tpu.ops.edt import edt_sq
 from particle_col_image_segmentation_tpu.ops.scans import seg_or_scan_bidi
 
 __all__ = [
@@ -26,18 +27,13 @@ __all__ = [
     "close_disk",
     "fill_holes",
     "local_maxima",
-    "local_maxima_auto",
     "boundary_mask",
 ]
 
 
 def dilate_disk(mask: jnp.ndarray, radius: int) -> jnp.ndarray:
-    """binary_dilation(mask, disk(radius)) — exact via EDT(¬mask) ≤ r.
-    Large radii ride the single-pass Pallas band EDT on TPU (identical
-    values — both transforms are exact up to the cap)."""
-    from particle_col_image_segmentation_tpu.ops.edt_tiles import edt_sq_auto
-
-    return edt_sq_auto(mask, cap=radius) <= radius * radius
+    """binary_dilation(mask, disk(radius)) — exact via EDT(¬mask) ≤ r."""
+    return edt_sq(mask, cap=radius) <= radius * radius
 
 
 def erode_disk(mask: jnp.ndarray, radius: int) -> jnp.ndarray:
@@ -230,104 +226,6 @@ def local_maxima(
         cond, body, (has_higher, jnp.ones(img.shape[:-2], bool), 0)
     )
     return (~bad, ~changed) if with_flag else ~bad
-
-
-@partial(
-    jax.jit,
-    static_argnames=("connectivity", "with_flag", "tile", "max_sweeps", "interpret"),
-)
-def _local_maxima_sweeps(
-    img: jnp.ndarray,
-    connectivity: int,
-    with_flag: bool,
-    tile: int,
-    max_sweeps: int,
-    interpret: bool = False,
-):
-    """Plateau-aware local maxima on the Pallas band-sweep machinery.
-
-    "Has a strictly higher neighbor" is one fused windowed max; flooding
-    that bad status through equal-value plateaus is a min-propagation of
-    (0 = bad, 1 = good) within equal-``img`` components — exactly
-    ``ccl_tiles.min_propagate``, whose Gauss-Seidel band sweeps converge in
-    a couple of passes where the XLA scan flood pays ~5 ms per segmented
-    scan call at [8, 512, 512].  Same semilattice fixpoint ⇒ bit-identical
-    to ``local_maxima``.
-    """
-    from particle_col_image_segmentation_tpu.ops.ccl_tiles import min_propagate
-
-    n = img.ndim
-    conn = 8 if connectivity == 2 else 4
-    low = jnp.iinfo(img.dtype).min if jnp.issubdtype(img.dtype, jnp.integer) \
-        else -jnp.inf
-    if conn == 8:
-        mx = jax.lax.reduce_window(
-            img, img.dtype.type(low), jax.lax.max,
-            window_dimensions=(1,) * (n - 2) + (3, 3),
-            window_strides=(1,) * n, padding="SAME",
-        )
-    else:
-        mr = jax.lax.reduce_window(
-            img, img.dtype.type(low), jax.lax.max,
-            window_dimensions=(1,) * (n - 2) + (1, 3),
-            window_strides=(1,) * n, padding="SAME",
-        )
-        mc = jax.lax.reduce_window(
-            img, img.dtype.type(low), jax.lax.max,
-            window_dimensions=(1,) * (n - 2) + (3, 1),
-            window_strides=(1,) * n, padding="SAME",
-        )
-        mx = jnp.maximum(mr, mc)
-    # the window includes self, which is never > itself
-    lab0 = jnp.where(mx > img, 0, 1).astype(jnp.int32)
-    # uint8 values ride HBM at ¼ the sweep read traffic (min_propagate
-    # casts in VMEM); everything else goes int32
-    val = img if img.dtype == jnp.uint8 else img.astype(jnp.int32)
-    out = min_propagate(
-        lab0, val, connectivity=conn, tile=tile,
-        max_sweeps=max_sweeps, with_flag=with_flag, interpret=interpret,
-    )
-    if with_flag:
-        prop, conv = out
-        return prop == 1, conv
-    return out == 1
-
-
-def local_maxima_auto(
-    img: jnp.ndarray,
-    connectivity: int = 2,
-    max_iters: int = 256,
-    with_flag: bool = False,
-    max_sweeps: int = 16,
-):
-    """local_maxima with automatic kernel selection.
-
-    On TPU backends, INTEGER planes with band-divisible heights and
-    lane-aligned widths ride the Pallas band sweeps (min-propagation of
-    bad status through plateaus — the CCL machinery, ~10× faster at
-    [8, 512²]); everything else falls back to the XLA scan flood.  Both
-    produce identical maxima (the fixpoint is order independent).
-
-    Pallas-path precondition: int32 inputs must be > -2**30 (the band
-    halo sentinel).  Non-negative images — EDT squared distances, counts,
-    uint8/uint16 exports — always qualify; narrower signed dtypes cannot
-    reach it.  Arbitrary-valued int32 callers must use ``local_maxima``.
-    Dtypes wider than int32 (uint32/int64/uint64) fall back to the XLA
-    flood — the sweeps cast values to int32, which would truncate.
-    """
-    from particle_col_image_segmentation_tpu.ops.ccl import _pick_band_tile
-
-    H, W = img.shape[-2:]
-    tile = _pick_band_tile(H)
-    on_tpu = jax.default_backend() not in ("cpu", "gpu")
-    fits_i32 = jnp.issubdtype(img.dtype, jnp.integer) and (
-        jnp.iinfo(img.dtype).bits < 32 or img.dtype == jnp.int32
-    )
-    if tile is None or W % 128 != 0 or not on_tpu or not fits_i32:
-        return local_maxima(img, connectivity, max_iters, with_flag)
-    return _local_maxima_sweeps(
-        img, connectivity, with_flag, tile, max_sweeps
-    )
 
 
 def boundary_mask(mask: jnp.ndarray) -> jnp.ndarray:

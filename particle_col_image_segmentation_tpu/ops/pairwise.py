@@ -5,9 +5,10 @@ Reference call sites: .m:259-268 (nearest neighbor between ROI classes) and
 direct coordinate differences (Σ(aᵢ−bᵢ)²), blocked over the second set with
 a running min so the full distance matrix is never materialized.
 
-Deliberately NOT the ‖a‖²+‖b‖²−2abᵀ matmul expansion: on TPU the default
-matmul precision truncates f32 operands to bf16 (centroids like 2001.0 are
-not bf16-representable), and even at full f32 the expansion cancels
+Deliberately NOT the ‖a‖²+‖b‖²−2abᵀ matmul expansion: accelerators' default
+matmul precision may truncate f32 operands (TF32 on a GPU keeps 10 mantissa
+bits, and centroids like 2001.1 are not representable), and even at full
+f32 the expansion cancels
 catastrophically for nearby points with large coordinates (terms ~|a||b|
 round at ~0.5 px² for 2k-px planes, swamping a 1 px distance).  The
 difference form subtracts first, so small distances stay exact — matching

@@ -1,21 +1,21 @@
-"""Region properties via segment reductions (TPU-native regionprops).
+"""Region properties via segment reductions.
 
 Replaces the reference's skimage ``regionprops`` Python loop
 (tiff_analysis.py:746-773) with fixed-shape ``jax.ops.segment_*`` reductions
 over compact label ids: area = count, centroid = Σcoords/area,
 bbox = per-segment min/max, class = per-segment max of the (component-
 homogeneous) class image.  Everything is static-shaped for jit: tables have
-``max_regions + 1`` rows, row 0 being the background segment.
+``max_regions + 1`` rows, row 0 being the background segment.  Every table
+function also takes a [B, H, W] stack and returns [B, R+1] columns.
 
 Precision note: Σrow over a 2048² component can reach ~8.6e9, overflowing
 int32 and losing float32 ulps.  Coordinate sums are therefore kept as exact
 (hi, lo) int32 pairs with total = HILO_BASE·hi + lo; ``centroids_int`` floors
 the exact quotient on device (for the reference's truncated-centroid lookups)
 and ``centroids_f64`` reconstructs exact float64 centroids on host (ROI float
-parity ≤1e-6 per BASELINE.json).  The base is 128 so both digits of any
-coordinate ≤ 16383 fit the MXU's int8 operand range
-(ops/regionprops_tiles.py); overflow check at base 128: lo-sums ≤ 4.2e6·127
-≈ 5.3e8 and the floor-div intermediate 128·r1 + lo ≤ 1.1e9, both < 2³¹.
+parity ≤1e-6 per BASELINE.json).  Overflow check at base 128: lo-sums
+≤ 4.2e6·127 ≈ 5.3e8 and the floor-div intermediate 128·r1 + lo ≤ 1.1e9,
+both < 2³¹.
 """
 
 from __future__ import annotations
@@ -32,12 +32,14 @@ __all__ = [
     "RegionTable",
     "CentroidTable",
     "region_props",
+    "region_counts",
     "centroid_sums",
+    "table_lookup",
     "centroids_int",
     "centroids_f64",
 ]
 
-HILO_BASE = 128  # (hi, lo) digit base; 128 keeps both digits int8-exact
+HILO_BASE = 128  # (hi, lo) digit base of the exact coordinate sums
 
 
 class RegionTable(NamedTuple):
@@ -69,8 +71,10 @@ class CentroidTable(NamedTuple):
 
 @partial(jax.jit, static_argnames=("max_regions",))
 def centroid_sums(seg: jnp.ndarray, max_regions: int) -> CentroidTable:
-    """CentroidTable from compact ids ``seg`` [H, W] (0 = background) — the
-    scatter path (one fused 5-column segment_sum; non-TPU backends)."""
+    """CentroidTable from compact ids ``seg`` [H, W] or [B, H, W]
+    (0 = background): one fused 5-column segment_sum."""
+    if seg.ndim == 3:
+        return jax.vmap(partial(centroid_sums, max_regions=max_regions))(seg)
     H, W = seg.shape
     R = max_regions + 1
     ids = seg.ravel()
@@ -103,12 +107,16 @@ def _exact_floor_div(hi: jnp.ndarray, lo: jnp.ndarray, d: jnp.ndarray):
 @partial(jax.jit, static_argnames=("max_regions",))
 def region_props(seg: jnp.ndarray, img: jnp.ndarray, max_regions: int) -> RegionTable:
     """Compute RegionTable from compact ids ``seg`` (0 = background) and the
-    class image ``img``.
+    class image ``img``, each [H, W] or [B, H, W].
 
-    All reductions ride three fused scatters (one add, one min, one max of
-    stacked columns) instead of nine separate segment ops — scatter passes
-    over 4M ids dominate this op's cost on TPU.
+    All reductions ride two fused scatters (one add, one max of stacked
+    columns) instead of nine separate segment ops: each scatter pass reads
+    every id once.
     """
+    if seg.ndim == 3:
+        return jax.vmap(partial(region_props, max_regions=max_regions))(
+            seg, img
+        )
     H, W = seg.shape
     R = max_regions + 1
     ids = seg.ravel()
@@ -157,7 +165,12 @@ def region_props(seg: jnp.ndarray, img: jnp.ndarray, max_regions: int) -> Region
 def region_counts(seg: jnp.ndarray, img: jnp.ndarray, max_regions: int):
     """Light-weight variant for the throughput path: (area [R+1],
     class_id [R+1]) only — one scalar scatter-add + one scalar scatter-max,
-    ~5× less scatter traffic than the full RegionTable."""
+    ~5× less scatter traffic than the full RegionTable.  [B, H, W] inputs
+    give [B, R+1] columns."""
+    if seg.ndim == 3:
+        return jax.vmap(partial(region_counts, max_regions=max_regions))(
+            seg, img
+        )
     R = max_regions + 1
     ids = seg.ravel()
     area = jax.ops.segment_sum(jnp.ones_like(ids), ids, num_segments=R)
@@ -165,6 +178,24 @@ def region_counts(seg: jnp.ndarray, img: jnp.ndarray, max_regions: int):
         img.ravel().astype(jnp.int32), ids, num_segments=R
     )
     return area, class_id
+
+
+@jax.jit
+def table_lookup(seg: jnp.ndarray, table: jnp.ndarray) -> jnp.ndarray:
+    """``table[seg]`` broadcast of a per-region int table back to pixels.
+
+    ``seg``: [H, W] or [B, H, W] ids; ``table``: [R] or [B, R] (one table per
+    plane).  Ids outside [0, R) read 0: a raw gather would clamp past-
+    capacity ids to the last row and wrap negative ids.
+    """
+    R = table.shape[-1]
+    table = table.astype(jnp.int32)
+    idx = jnp.clip(seg, 0, R - 1)
+    if seg.ndim == 3 and table.ndim == 2:
+        out = jax.vmap(lambda s, t: t[s])(idx, table)
+    else:
+        out = table[idx]
+    return jnp.where((seg >= 0) & (seg < R), out, 0)
 
 
 def centroids_int(table: RegionTable) -> Tuple[jnp.ndarray, jnp.ndarray]:

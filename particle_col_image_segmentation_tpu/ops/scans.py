@@ -1,6 +1,6 @@
 """Segmented associative scans — the workhorse of the iterative kernels.
 
-TPU-friendly building blocks: log-depth ``jax.lax.associative_scan`` over
+Vector-friendly building blocks: log-depth ``jax.lax.associative_scan`` over
 (value, segment-boundary) pairs propagates min/or within runs of equal-valued
 pixels along rows or columns.  CCL, flood fill, and vertical EDT all reduce to
 these, avoiding sequential per-pixel loops that XLA cannot vectorize.

@@ -58,34 +58,14 @@ def otsu_threshold(img: jnp.ndarray, bins: int = 256) -> jnp.ndarray:
 
 def _histogram_batch(x3: jnp.ndarray, bins: int):
     """Per-plane histograms of [B, H, W] over each plane's [min, max] range
-    (skimage.threshold_otsu binning — same idx/edges as ``histogram``).
-
-    The round-4 config #1 profile attributed the 512² "small-plane compute
-    plateau" (~40 of 44 ms/batch at B=16) to THIS histogram's scatter-add —
-    the op family docs/PERF.md already measured at 20-40× matmul cost — not
-    to CCL as round 4 guessed.  On TPU the bincount rides the MXU one-hot
-    histogram kernel instead (bin indices as region ids): bit-identical
-    counts, no scatter anywhere.
-    """
+    (skimage.threshold_otsu binning — same idx/edges as ``histogram``)."""
     lo = jnp.min(x3, axis=(-2, -1), keepdims=True)
     hi = jnp.max(x3, axis=(-2, -1), keepdims=True)
     span = jnp.maximum(hi - lo, 1e-12)
     idx = jnp.clip(((x3 - lo) / span * bins).astype(jnp.int32), 0, bins - 1)
-    on_tpu = jax.default_backend() not in ("cpu", "gpu")
-    H = x3.shape[-2]
-    if on_tpu and H % 8 == 0 and bins - 1 <= 16383:
-        from particle_col_image_segmentation_tpu.ops.regionprops_tiles import (
-            region_counts_auto,
-        )
-
-        counts, _ = region_counts_auto(
-            idx, jnp.zeros(x3.shape, jnp.uint8), bins - 1, val_bound=1
-        )
-        counts = counts.astype(jnp.int32)
-    else:
-        counts = jax.vmap(
-            lambda i: jnp.zeros((bins,), jnp.int32).at[i.ravel()].add(1)
-        )(idx)
+    counts = jax.vmap(
+        lambda i: jnp.zeros((bins,), jnp.int32).at[i.ravel()].add(1)
+    )(idx)
     centers = (
         lo[..., 0]
         + (jnp.arange(bins, dtype=jnp.float32) + 0.5) * span[..., 0] / bins
@@ -111,9 +91,8 @@ def _otsu_from_hist(counts: jnp.ndarray, centers: jnp.ndarray) -> jnp.ndarray:
 
 @partial(jax.jit, static_argnames=("bins",))
 def otsu_threshold_batch(imgs: jnp.ndarray, bins: int = 256) -> jnp.ndarray:
-    """Per-plane Otsu thresholds for a [B, H, W] stack, scatter-free on TPU
-    (see ``_histogram_batch``); bit-identical to ``otsu_threshold`` on each
-    plane."""
+    """Per-plane Otsu thresholds for a [B, H, W] stack; bit-identical to
+    ``otsu_threshold`` on each plane."""
     counts, centers = _histogram_batch(imgs.astype(jnp.float32), bins)
     return _otsu_from_hist(counts, centers)
 
@@ -149,9 +128,9 @@ def threshold_and_count(
 def threshold_and_count_batch(
     imgs: jnp.ndarray, max_regions: int = 4096, min_area: int = 1
 ):
-    """Batched config #1 on the fast kernel family: per-plane Otsu → CCL →
-    per-plane particle counts, one launch for a whole [B, H, W] stack (the
-    band-sweep CCL and MXU tables batch over the leading axis).
+    """Batched config #1: per-plane Otsu → CCL → per-plane particle counts,
+    one launch for a whole [B, H, W] stack (every stage batches over the
+    leading axis).
 
     Background pixels are labeled too (``background=None`` keeps the CCL on
     the cheap uint8 value path); the count filters to foreground (class 1)
@@ -166,26 +145,22 @@ def threshold_and_count_batch(
     detect this — it is summed over the table and never exceeds
     max_regions).
     """
-    from particle_col_image_segmentation_tpu.ops import (
-        connected_components_auto,
+    from particle_col_image_segmentation_tpu.ops.ccl import (
+        compact_labels,
+        connected_components,
     )
-    from particle_col_image_segmentation_tpu.ops.ccl import compact_labels_auto
-    from particle_col_image_segmentation_tpu.ops.regionprops_tiles import (
-        region_counts_auto,
-    )
+    from particle_col_image_segmentation_tpu.ops.regionprops import region_counts
 
     x = imgs.astype(jnp.float32)
-    t = otsu_threshold_batch(x)  # [B], scatter-free on TPU
+    t = otsu_threshold_batch(x)  # [B]
     mask = x > t[:, None, None]
     m8 = mask.astype(jnp.uint8)
-    raw, conv_ccl = connected_components_auto(
+    raw, converged = connected_components(
         m8, background=None, num_classes=2, with_flag=True
     )
-    seg, num_total, conv_cmp = compact_labels_auto(
-        raw, max_regions, val=m8, with_flag=True
-    )
-    areas, classes = region_counts_auto(seg, m8, max_regions, val_bound=1)
+    seg, num_total = compact_labels(raw, max_regions)
+    areas, classes = region_counts(seg, m8, max_regions)
     fg = (classes == 1) & (areas > 0)
     count = jnp.sum((fg & (areas >= min_area)).astype(jnp.int32), axis=-1)
     num_fg = jnp.sum(fg.astype(jnp.int32), axis=-1)
-    return mask, seg, count, num_fg, num_total, conv_ccl & conv_cmp
+    return mask, seg, count, num_fg, num_total, converged

@@ -1,4 +1,4 @@
-"""Marker-based watershed on TPU (two-phase minimax flooding).
+"""Marker-based watershed as an XLA fixpoint (two-phase minimax flooding).
 
 Replaces skimage.segmentation.watershed (reference: refine_boundaries.py:73)
 with an iteration-order-independent formulation in two confluent phases:
@@ -34,8 +34,8 @@ pixel's claim from its neighbors' current states, rather than ratcheting),
 because the level-reset makes single-pixel updates non-monotone; the
 justification graph is still acyclic (cost strictly increases across
 resets, level distance strictly increases within a level), so the fixpoint
-is unique and any schedule — XLA Jacobi, Pallas Gauss-Seidel band sweeps,
-sharded halo-exchange — produces bit-identical labels.  Agreement with
+is unique and any schedule — single-device Jacobi, sharded
+halo-exchange — produces bit-identical labels.  Agreement with
 skimage's sequential priority flood is by boundary IoU (exact queue-order
 ties still differ; BASELINE.json contract).
 
@@ -46,7 +46,7 @@ floods the entire basin within one BFS round — geodesic distance across a
 basin is ~1 regardless of its width (hand-traced golden
 `test_quantized_basin_tunnels_wave`).  Naive zero-increment steps make
 the justification graph cyclic (intra-basin zero edges sustain phantom
-states; recorded negative in docs/PERF.md), so this mode *contracts* each
+states; recorded negative in PERF.md), so this mode *contracts* each
 basin instead: adjacent below-level pixels provably share one flood level
 (cost[p] < cost[q] would force cost[q] ≤ img[q], contradicting
 img[q] < cost[q]), so the connected components of the below-level mask
@@ -70,7 +70,7 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 
-__all__ = ["watershed", "watershed_auto"]
+__all__ = ["watershed"]
 
 _INF = 3.4e38
 _BIG_LAB = jnp.iinfo(jnp.int32).max
@@ -102,7 +102,7 @@ def claim_candidates(cost, img, lab, dist, eimg, dy, dx, shifted,
                      inc=1, seg=None):
     """One optimal-edge candidate set for the phase-2 claim relaxation.
 
-    Shared by every schedule (XLA Jacobi, Pallas band sweeps, sharded halo
+    Shared by every schedule (single-device Jacobi, sharded halo
     exchange) AND the tunnel-basins quotient graph, so the lexicographic
     key is defined in exactly one place.  ``shifted(x, dy, dx, fill)``
     supplies the neighbor view.  ``inc`` is the per-hop level-distance
@@ -330,46 +330,3 @@ def watershed(
     if with_flag:
         return out, ~(c_changed | l_changed) & basin_conv
     return out
-
-def watershed_auto(
-    image: jnp.ndarray,
-    markers: jnp.ndarray,
-    mask: Optional[jnp.ndarray] = None,
-    connectivity: int = 1,
-    with_flag: bool = False,
-    max_iters: int = 1024,
-    max_sweeps: int = 16,
-) -> jnp.ndarray:
-    """watershed with automatic kernel selection: the Pallas band sweeps on
-    TPU backends (band-divisible heights, lane-aligned widths), the XLA
-    fixpoint elsewhere.  Batched [B, H, W] inputs pack contiguously into
-    ONE pallas launch (watershed_tiles plane masking) — 3.6× the batched
-    XLA Jacobi at [8, 512²] on v5e (26.3 → 7.3 ms), and every schedule is
-    bit-identical (two-phase confluence).  ``with_flag=True`` appends a
-    batch-shaped bool ``converged``.
-
-    Budgets: ``max_iters`` bounds the XLA Jacobi loops, ``max_sweeps`` the
-    Pallas down+up band-sweep pairs (one sweep relaxes up to
-    ``inner_iters``=256 px per band visit, so 16 sweeps ≫ 16 Jacobi
-    iterations).  A plane that exhausts its budget reports
-    ``converged=False`` — raise the corresponding knob to recover.
-    """
-    backend = jax.default_backend()
-    H, W = image.shape[-2:]
-    tile = next((t for t in (64, 32, 16, 8) if H % t == 0), None)
-    # band DMAs need lane-aligned widths (Mosaic memref slicing), same
-    # gating as connected_components_auto
-    if (tile is None or W % 128 != 0
-            or backend in ("cpu", "gpu")):
-        return watershed(
-            image, markers, mask, connectivity=connectivity,
-            max_iters=max_iters, with_flag=with_flag
-        )
-    from particle_col_image_segmentation_tpu.ops.watershed_tiles import (
-        watershed_sweeps,
-    )
-
-    return watershed_sweeps(
-        image, markers, mask, connectivity=connectivity, tile=tile,
-        max_sweeps=max_sweeps, with_flag=with_flag,
-    )

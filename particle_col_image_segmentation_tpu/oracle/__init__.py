@@ -3,7 +3,7 @@
 skimage and tifffile are not available in this environment, so the oracle
 reimplements the handful of skimage primitives the reference relies on
 (label, regionprops, disk, binary_dilation, local_maxima, watershed) in pure
-NumPy/SciPy, following the documented skimage semantics.  Every TPU kernel and
+NumPy/SciPy, following the documented skimage semantics.  Every device kernel and
 pipeline is parity-tested against this oracle.
 """
 

@@ -2,7 +2,7 @@
 
 Each function reimplements the behavior of its reference counterpart in
 tiff_analysis.py (cited per function).  This module is the golden oracle the
-TPU pipelines are parity-tested against, and doubles as a CPU fallback engine.
+device pipelines are parity-tested against, and doubles as a CPU fallback engine.
 
 Known reference defects (SURVEY.md §2.6) are fixed by default and reproduced
 when ``AnalysisConfig.strict_reference_errors`` is set.

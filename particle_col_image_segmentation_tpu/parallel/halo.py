@@ -2,7 +2,7 @@
 
 Each shard holds a contiguous band of plane rows; iterative kernels (median
 window, CCL neighbor steps) need ``halo`` rows from each neighbor every
-step.  Implemented with ``jax.lax.ppermute`` shifts over ICI; global plane
+step.  Implemented with ``jax.lax.ppermute`` shifts between neighboring devices; global plane
 edges receive a fill value (or symmetric reflection for filter padding).
 """
 
@@ -37,7 +37,7 @@ def exchange_rows(x: jnp.ndarray, halo: int, axis_name: str = SPACE_AXIS):
 
     # Ship only the rows each hop actually contributes (the far hop carries
     # the remainder): ppermuting the full band per hop would move h_loc/halo×
-    # the needed bytes over ICI inside the hottest fixpoint loops.  Hop k<hops
+    # the needed bytes between devices inside the hottest fixpoint loops.  Hop k<hops
     # contributes a full band (r_k = h_loc); hop k=hops the remaining rows —
     # the parts concatenate to exactly ``halo`` contiguous rows.
     top_parts = []

@@ -1,8 +1,10 @@
 """Device-mesh construction.
 
-The reference has zero parallelism (SURVEY.md §2.8); scale-out here is
-TPU-native: a 2-axis mesh with "data" (batch of planes — the DP axis) and
-"space" (plane rows — the spatial/TP-analogue axis), collectives riding ICI.
+The reference has zero parallelism (SURVEY.md §2.8); scale-out here is a
+2-axis mesh with "data" (batch of planes — the DP axis) and "space" (plane
+rows — the spatial/TP-analogue axis).  The devices of one host are joined
+all to all (NVLink), so any device order is a valid layout within a host;
+only the split between hosts matters (see ``initialize_multihost``).
 """
 
 from __future__ import annotations
@@ -54,14 +56,15 @@ def initialize_multihost(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> Mesh:
-    """Multi-host entry point (SURVEY §2.8: DCN-spanning meshes).
+    """Multi-host entry point (SURVEY §2.8: meshes spanning hosts).
 
-    Calls ``jax.distributed.initialize`` (auto-detecting on TPU pods when no
-    arguments are given), then builds the global mesh over every device in
-    the slice — data-parallel across hosts (batch stays host-local through
-    the loader), spatial axis within each host so halo exchange rides ICI,
-    never DCN.  Single-process environments skip initialization and return
-    the local mesh.
+    Calls ``jax.distributed.initialize`` (with the given coordinator, or
+    auto-detecting a managed cluster when no arguments are given), then
+    builds the global mesh over every device — data-parallel across hosts
+    (batch stays host-local through the loader), spatial axis within each
+    host so halo exchange stays on the intra-host links, never the network.
+    Single-process environments skip initialization and return the local
+    mesh.
     """
     if coordinator_address is not None or num_processes not in (None, 1):
         jax.distributed.initialize(
@@ -70,23 +73,23 @@ def initialize_multihost(
             process_id=process_id,
         )
     elif num_processes is None:
-        try:  # pod auto-detection (no-op off-pod / already initialized)
+        try:  # cluster auto-detection (fails outside a managed cluster)
             jax.distributed.initialize()
-        except Exception as e:  # noqa: BLE001 — off-pod fallback is the point
-            # ... but a REAL pod bring-up failure (coordinator timeout,
+        except Exception as e:  # noqa: BLE001 — single-host fallback is the point
+            # ... but a REAL cluster bring-up failure (coordinator timeout,
             # runtime mismatch) must not silently become a single-host run
             import logging
 
             logging.getLogger(__name__).warning(
                 "jax.distributed.initialize() auto-detect failed (%s: %s) — "
-                "continuing single-host; on a multi-host pod this is a "
+                "continuing single-host; on a multi-host cluster this is a "
                 "bring-up failure, not the intended fallback",
                 type(e).__name__, e,
             )
     # group devices by host so each mesh row is one process: the spatial
     # axis (per-iteration ppermute halos in the CCL/watershed fixpoints)
-    # must ride ICI within a host, never DCN — raw jax.devices() id order
-    # is not guaranteed host-contiguous on every topology
+    # must stay within a host, never cross the network — raw
+    # jax.devices() id order is not guaranteed host-contiguous
     devs = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
     total = len(devs)
     n_space = min(jax.local_device_count(), total)

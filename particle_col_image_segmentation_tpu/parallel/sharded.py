@@ -8,8 +8,8 @@ exchange of boundary labels (cross-shard components converge through the
 boundary each round) and shard-local pointer jumping.  Convergence is a
 global ``psum`` of the per-shard change flag, so every shard exits together.
 
-Design notes (SURVEY.md §2.8): collectives are ppermute/psum over ICI —
-the TPU-native replacement for the reference's nonexistent distributed
+Design notes (SURVEY.md §2.8): collectives are ppermute/psum over the
+device links — the replacement for the reference's nonexistent distributed
 backend.
 """
 
@@ -671,7 +671,7 @@ def _watershed_shard(image, markers, mask, connectivity: int, max_iters: int):
     fixpoints as ops/watershed.py (one shared candidate/fold definition),
     with a 1-px halo exchange per iteration and psum convergence.  The
     unique-fixpoint argument makes the sharded schedule bit-identical to
-    the single-chip XLA/Pallas kernels."""
+    the single-device kernel."""
     from particle_col_image_segmentation_tpu.ops.watershed import (
         _BIG_LAB as BIG,
         _offsets,

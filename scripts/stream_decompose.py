@@ -22,7 +22,12 @@ import sys
 import tempfile
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_pcis")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from particle_col_image_segmentation_tpu.utils.cache import (  # noqa: E402
+    enable_compile_cache,
+)
+
+enable_compile_cache()
 
 import numpy as np
 

@@ -27,6 +27,7 @@ from particle_col_image_segmentation_tpu.report.csvio import (
 )
 
 from fixtures import synthetic_label_plane
+from parity import write_expected_multichannel_csvs, write_expected_single_csvs
 
 CFG = AnalysisConfig(max_regions=4096)
 
@@ -55,25 +56,14 @@ class TestSingleFileFlow:
         assert pos_csv.exists() and merged_csv.exists() and density_csv.exists()
 
         # oracle replication of the reference flow (:627-671)
-        den = rp.denoise(img, CFG)
-        pos, clusters, particle_area, merged = rp.get_cell_positions_and_areas(
-            den, cell_types, merged=True, cfg=CFG
-        )
-        counts, dens, ratios = rp.get_cell_counts_and_densities(
-            pos, clusters, particle_area, CFG
-        )
-        _, filled_area = rp.recreate_particle_area(den.copy(), cell_types, particle_area, CFG)
-
         exp_dir = tmp_path / "expected"
         exp_dir.mkdir()
-        write_cell_position_info(pos, clusters, str(exp_dir / "pos.csv"), filled_area, CFG)
-        write_merged_cell_position_info(merged, str(exp_dir / "merged.csv"), filled_area, CFG)
-        write_density_info(
-            str(exp_dir / "density.csv"), "Tp_3D05_1_24h_60X_15", dens, ratios, counts
+        want = write_expected_single_csvs(
+            img, cell_types, CFG, str(exp_dir), "Tp_3D05_1_24h_60X_15"
         )
-        assert _read(pos_csv) == _read(exp_dir / "pos.csv")
-        assert _read(merged_csv) == _read(exp_dir / "merged.csv")
-        assert _read(density_csv) == _read(exp_dir / "density.csv")
+        assert _read(pos_csv) == _read(want["pos"])
+        assert _read(merged_csv) == _read(want["merged"])
+        assert _read(density_csv) == _read(want["density"])
 
     def test_density_rerun_replaces_rows(self, tmp_path):
         folder = tmp_path / "exp" / "24h" / "Tp_3D05_1_24h_60X_15"
@@ -227,42 +217,18 @@ class TestMultiChannelFlow:
         combined_csv = folder / "Tp_2_48h_60X_3_cell_pos_combined.csv"
         assert density_csv.exists() and combined_csv.exists()
 
-        # oracle replication
-        den_rfp = rp.denoise(rfp, CFG)
-        den_dapi = rp.denoise(dapi, CFG)
-        den_gfp = rp.denoise(gfp, CFG)
-        pos_r, cl_r, pa_r, _ = rp.get_cell_positions_and_areas(den_rfp, rfp_types, cfg=CFG)
-        _, rfp_area = rp.recreate_particle_area(den_rfp.copy(), rfp_types, pa_r, CFG)
-        assert pos_r == {}  # no cell class on RFP
-        pos_d, cl_d, _, _ = rp.get_cell_positions_and_areas(den_dapi, dapi_types, cfg=CFG)
-        pos_g, cl_g, _, _ = rp.get_cell_positions_and_areas(den_gfp, gfp_types, cfg=CFG)
-        master_pos = {**pos_d, **pos_g}
-        master_cl = {**cl_d, **cl_g}
-        dapi_updated = rp.combine_cell_positions_and_clusters(den_dapi, den_gfp, CFG)
-        pos_d2, cl_d2, _, _ = rp.get_cell_positions_and_areas(dapi_updated, dapi_types, cfg=CFG)
-        master_pos["6B07"] = pos_d2["6B07"]
-        master_cl["6B07"] = cl_d2["6B07"]
-        counts, dens, ratios = rp.get_cell_counts_and_densities(
-            master_pos, master_cl, rfp_area, CFG
-        )
+        # oracle replication (RFP carries no cell class under 6B07+C3M10)
         exp_dir = tmp_path / "expected3"
         exp_dir.mkdir()
-        write_density_info(str(exp_dir / "density.csv"), "Tp_2_48h_60X_3", dens, ratios, counts)
-        assert _read(density_csv) == _read(exp_dir / "density.csv")
-        write_cell_position_info(master_pos, master_cl, str(exp_dir / "combined.csv"), rfp_area, CFG)
-        assert _read(combined_csv) == _read(exp_dir / "combined.csv")
-
-        # fused plane: RFP base remap 1→4, 2→5 then stamp 6B07(2)/C3M10(3)
-        fused = rp.get_rfp_base_arr(den_rfp.copy(), ["6B07", "C3M10"])
-        fused = rp.combine_channels(
-            fused, {"RFP": den_rfp, "DAPI": den_dapi, "GFP": den_gfp},
-            ["6B07", "C3M10"],
+        want = write_expected_multichannel_csvs(
+            {"RFP": rfp, "DAPI": dapi, "GFP": gfp}, ["6B07", "C3M10"], CFG,
+            str(exp_dir), "Tp_2_48h_60X_3",
         )
-        from particle_col_image_segmentation_tpu.config import BASE_TYPE_MAP as BTM
-        _, _, _, merged = rp.get_cell_positions_and_areas(fused, BTM, merged=True, cfg=CFG)
+        raw_csv = folder / "Tp_2_48h_60X_3_cell_pos_raw.csv"
         merged_csv = folder / "Tp_2_48h_60X_3_merged_cell_pos.csv"
-        write_merged_cell_position_info(merged, str(exp_dir / "merged.csv"), rfp_area, CFG)
-        assert _read(merged_csv) == _read(exp_dir / "merged.csv")
+        for got, key in ((raw_csv, "raw"), (density_csv, "density"),
+                         (combined_csv, "combined"), (merged_csv, "merged")):
+            assert _read(got) == _read(want[key]), key
 
     @pytest.mark.skipif(
         len(__import__("jax").devices()) < 8, reason="needs 8 devices"

@@ -1,4 +1,4 @@
-"""Parity tests: TPU core ops (median, CCL, regionprops) vs the CPU oracle."""
+"""Parity tests: device core ops (median, CCL, regionprops) vs the CPU oracle."""
 
 import numpy as np
 import pytest
@@ -94,16 +94,30 @@ class TestCCL:
         np.testing.assert_array_equal(np.asarray(seg), ref)
 
 
-class TestPallasBandCCL:
-    """The Gauss-Seidel band-sweep kernel must produce bit-identical labels
-    (exercised in interpreter mode on CPU; the TPU path is bench-covered)."""
+def _oracle_raw(img, background, connectivity=8):
+    """Oracle labels in connected_components' raw form: every pixel holds
+    the min linear index of its component, background -1."""
+    lab = ond.label(
+        img, background=-1 if background is None else background,
+        connectivity=2 if connectivity == 8 else 1,
+    )
+    lin = np.arange(lab.size).reshape(lab.shape)
+    out = np.full(lab.shape, -1, np.int64)
+    for i in range(1, lab.max() + 1):
+        sel = lab == i
+        out[sel] = lin[sel].min()
+    return out
+
+
+class TestCCLGeometries:
+    """connected_components on the geometries that stress the fixpoint's
+    row/column scans, neighbor steps and value handling, against the
+    oracle's raw root labels."""
 
     @pytest.mark.parametrize(
         "case", ["structured", "speckle", "binary", "stripe"]
     )
-    def test_matches_xla_ccl(self, case):
-        from particle_col_image_segmentation_tpu.ops.ccl_tiles import ccl_sweeps
-
+    def test_matches_oracle(self, case):
         if case == "structured":
             img, bg = synthetic_label_plane(seed=1, shape=(128, 128)), None
         elif case == "speckle":
@@ -115,19 +129,12 @@ class TestPallasBandCCL:
             img = np.full((128, 128), 3, np.uint8)
             img[:, 60:64] = 1
             bg = None
-        ref = np.asarray(connected_components(jnp.asarray(img), background=bg))
-        got = np.asarray(
-            ccl_sweeps(jnp.asarray(img), background=bg, tile=32, interpret=True)
-        )
-        np.testing.assert_array_equal(got, ref)
+        got = np.asarray(connected_components(jnp.asarray(img), background=bg))
+        np.testing.assert_array_equal(got, _oracle_raw(img, bg))
 
     @pytest.mark.parametrize("connectivity", [4, 8])
     def test_zigzag_staircase(self, connectivity):
-        # stresses the scans-only axis propagation (the 1-step axis offsets
-        # were dropped from the band local solve as scan-subsumed): a
-        # 1-px staircase needs alternating row/column hops every pixel
-        from particle_col_image_segmentation_tpu.ops.ccl_tiles import ccl_sweeps
-
+        # a 1-px staircase needs alternating row/column hops every pixel
         H = W = 64
         img = np.zeros((H, W), np.uint8)
         r, c = 0, 0
@@ -136,49 +143,28 @@ class TestPallasBandCCL:
             img[r + 1, c] = 1
             img[r + 1, c + 1] = 1
             r, c = r + 1, c + 1
-        ref = np.asarray(
+        got = np.asarray(
             connected_components(jnp.asarray(img), connectivity=connectivity)
         )
-        got = np.asarray(
-            ccl_sweeps(
-                jnp.asarray(img), connectivity=connectivity, tile=16,
-                interpret=True,
-            )
+        np.testing.assert_array_equal(
+            got, _oracle_raw(img, None, connectivity)
         )
-        np.testing.assert_array_equal(got, ref)
 
     def test_u8_value_255_not_background(self):
-        """Regression: in-plane uint8 value 255 collided with the halo pad
-        fill and was remapped to the background sentinel in VMEM — a plain
-        0/255 thresholded mask got garbage labels (incl. cross-plane
-        leakage through the batch halo).  255 must label like any value."""
-        from particle_col_image_segmentation_tpu.ops.ccl_tiles import ccl_sweeps
-
+        """In-plane uint8 value 255 must label like any value, in a batch
+        whose planes stay isolated, under both background modes."""
         rng = np.random.default_rng(7)
         batch = (rng.random((3, 64, 64)) < 0.4).astype(np.uint8) * 255
-        batch[0, 0, :] = 255  # 255-component touching the global top pad
-        batch[-1, -1, :] = 255  # ...and the global bottom pad
-        ref = np.stack([
-            np.asarray(connected_components(jnp.asarray(p), background=None,
-                                            num_classes=256))
-            for p in batch
-        ])
-        got = np.asarray(
-            ccl_sweeps(jnp.asarray(batch), background=None, tile=32,
-                       interpret=True)
-        )
-        np.testing.assert_array_equal(got, ref)
-        # background=0 route: int32 internally, 255 foreground
-        ref0 = np.stack([
-            np.asarray(connected_components(jnp.asarray(p), background=0,
-                                            num_classes=256))
-            for p in batch
-        ])
-        got0 = np.asarray(
-            ccl_sweeps(jnp.asarray(batch), background=0, tile=32,
-                       interpret=True)
-        )
-        np.testing.assert_array_equal(got0, ref0)
+        batch[0, 0, :] = 255  # 255-component touching the top edge
+        batch[-1, -1, :] = 255  # ...and the bottom edge
+        for bg in (None, 0):
+            got = np.asarray(connected_components(
+                jnp.asarray(batch), background=bg, num_classes=256
+            ))
+            for z in range(3):
+                np.testing.assert_array_equal(
+                    got[z], _oracle_raw(batch[z], bg), err_msg=f"{bg}:{z}"
+                )
 
 
 class TestRegionProps:
@@ -222,18 +208,12 @@ class TestRegionProps:
         assert int(np.asarray(icy)[1]) == int((H - 1) / 2)
 
 
-class TestScatterFreeTables:
-    """compact_labels_sweeps and region_counts_mxu must match the gather/
-    scatter paths bit-exactly (interpret mode on CPU; TPU path bench-covered)."""
+class TestRegionTables:
+    """Compaction, the segment_sum region tables and the table lookup on
+    batches, over-capacity ids and wide values, against NumPy/the oracle."""
 
     @pytest.mark.parametrize("case", ["structured", "speckle", "background"])
-    def test_compact_sweeps_matches_gather(self, case):
-        from particle_col_image_segmentation_tpu.ops.ccl import (
-            compact_labels,
-            compact_labels_sweeps,
-            connected_components,
-        )
-
+    def test_compact_matches_oracle(self, case):
         if case == "structured":
             img, bg = synthetic_label_plane(seed=21, shape=(64, 128)), None
         elif case == "speckle":
@@ -241,38 +221,31 @@ class TestScatterFreeTables:
         else:
             img = (random_class_plane((64, 128), 2, seed=23) == 1).astype(np.uint8)
             bg = 0
-        raw = connected_components(jnp.asarray(img), background=bg, num_classes=4)
-        s0, n0 = compact_labels(raw, 4096)
-        s1, n1 = compact_labels_sweeps(raw, 4096, tile=8, interpret=True)
-        assert int(n0) == int(n1)
-        np.testing.assert_array_equal(np.asarray(s0), np.asarray(s1))
-
-    def test_compact_sweeps_batched(self):
-        import jax
-
-        from particle_col_image_segmentation_tpu.ops.ccl import (
-            compact_labels,
-            compact_labels_sweeps,
-            connected_components,
+        raw = connected_components(jnp.asarray(img), background=bg, num_classes=8)
+        seg, num = compact_labels(raw, 4096)
+        ref, ref_n = ond.label(
+            img, background=-1 if bg is None else bg, return_num=True
         )
+        assert int(num) == ref_n
+        np.testing.assert_array_equal(np.asarray(seg), ref)
 
+    def test_compact_batched(self):
         imgs = np.stack(
             [random_class_plane((64, 128), 3, seed=s) for s in (31, 32)]
         )
-        raw = jax.vmap(lambda i: connected_components(i, num_classes=4))(
-            jnp.asarray(imgs)
-        )
-        s0, n0 = jax.vmap(lambda r: compact_labels(r, 4096))(raw)
-        s1, n1 = compact_labels_sweeps(raw, 4096, tile=8, interpret=True)
-        np.testing.assert_array_equal(np.asarray(n0), np.asarray(n1))
-        np.testing.assert_array_equal(np.asarray(s0), np.asarray(s1))
+        raw = connected_components(jnp.asarray(imgs), num_classes=4)
+        seg, num = compact_labels(raw, 4096)
+        assert num.shape == (2,)
+        for z in range(2):
+            ref, ref_n = ond.label(imgs[z], background=-1, return_num=True)
+            assert int(num[z]) == ref_n
+            np.testing.assert_array_equal(np.asarray(seg[z]), ref)
 
-    def test_region_counts_mxu_matches_scatter(self):
+    def test_region_counts_over_capacity(self):
+        """Ids past the table capacity are dropped; every id in range gets
+        its exact area and class."""
         from particle_col_image_segmentation_tpu.ops.regionprops import (
             region_counts,
-        )
-        from particle_col_image_segmentation_tpu.ops.regionprops_tiles import (
-            region_counts_mxu,
         )
 
         rng = np.random.default_rng(5)
@@ -280,79 +253,51 @@ class TestScatterFreeTables:
         seg = rng.integers(0, R + 9, (64, 256)).astype(np.int32)  # ids > capacity
         cls_of = rng.integers(0, 8, R + 16).astype(np.int32)
         img = cls_of[seg]  # component-homogeneous classes
-        a0, c0 = region_counts(jnp.asarray(seg), jnp.asarray(img), R - 1)
-        for vb in (None, 7):  # general digit-split AND the narrow fast path
-            a1, c1 = region_counts_mxu(
-                jnp.asarray(seg), jnp.asarray(img), R - 1,
-                rows_per_chunk=8, interpret=True, val_bound=vb,
-            )
-            np.testing.assert_array_equal(np.asarray(a0), np.asarray(a1))
-            # empty rows differ by design (scatter-max identity vs 0)
-            valid = np.asarray(a0) > 0
-            np.testing.assert_array_equal(
-                np.asarray(c0)[valid], np.asarray(c1)[valid]
-            )
+        area, cls = region_counts(jnp.asarray(seg), jnp.asarray(img), R - 1)
+        ref_area = np.bincount(seg.ravel(), minlength=R + 9)[:R]
+        np.testing.assert_array_equal(np.asarray(area), ref_area)
+        valid = ref_area > 0
+        np.testing.assert_array_equal(np.asarray(cls)[valid], cls_of[:R][valid])
 
     def test_lookup_over_capacity_reads_zero(self):
-        """Regression: ids with q >= Qp once matched a LO-digit table row in
-        the MXU lookup (returning 128·table[id − Qp·128]), and the XLA
-        fallback's gather CLAMPED to the last row.  Both must read 0."""
-        from particle_col_image_segmentation_tpu.ops.regionprops_tiles import (
-            table_lookup_auto,
-            table_lookup_mxu,
+        """A raw gather CLAMPS past-capacity ids to the last row; the
+        lookup must read 0 for them."""
+        from particle_col_image_segmentation_tpu.ops.regionprops import (
+            table_lookup,
         )
 
-        R = 5  # Qp rounds to 16 → kernel capacity 2048
+        R = 5
         tab = np.array([9, 8, 3, 7, 250], np.int32)
         seg = np.array(
             [[0, 2, 4, 5, 100, 2047, 2048, 2050, 4096, 5000]] * 8, np.int32
         )
         expect = np.where(seg < R, tab[np.minimum(seg, R - 1)], 0)
-        got = np.asarray(
-            table_lookup_mxu(jnp.asarray(seg), jnp.asarray(tab),
-                             rows_per_chunk=8, interpret=True)
-        )
+        got = np.asarray(table_lookup(jnp.asarray(seg), jnp.asarray(tab)))
         np.testing.assert_array_equal(got, expect)
-        # XLA fallback path (CPU backend in this suite)
-        got_auto = np.asarray(table_lookup_auto(jnp.asarray(seg), jnp.asarray(tab)))
-        np.testing.assert_array_equal(got_auto, expect)
 
     def test_lookup_negative_ids_read_zero(self):
-        """Regression: a negative id (raw CCL background = -1) matched the
-        last HI-digit row in the MXU lookup (q = -1 hit hit_lo at Qp-1),
-        and the eager fallback WRAPPED it numpy-style to table[-1].  Both
-        paths must read 0 for any id outside [0, len(table))."""
-        from particle_col_image_segmentation_tpu.ops.regionprops_tiles import (
-            table_lookup_auto,
-            table_lookup_mxu,
+        """A negative id (raw CCL background = -1) would WRAP numpy-style
+        to table[-1]; the lookup must read 0 for any id outside
+        [0, len(table))."""
+        from particle_col_image_segmentation_tpu.ops.regionprops import (
+            table_lookup,
         )
 
-        tab = np.arange(1, 2049, dtype=np.int32) % 200  # full padded capacity
+        tab = np.arange(1, 2049, dtype=np.int32) % 200
         seg = np.array([[-1, -5, -2048, 0, 1, 2047, 2048]] * 8, np.int32)
         expect = np.where(
             (seg >= 0) & (seg < tab.size), tab[np.clip(seg, 0, tab.size - 1)], 0
         )
-        got = np.asarray(
-            table_lookup_mxu(jnp.asarray(seg), jnp.asarray(tab),
-                             rows_per_chunk=8, interpret=True)
-        )
+        got = np.asarray(table_lookup(jnp.asarray(seg), jnp.asarray(tab)))
         np.testing.assert_array_equal(got, expect)
-        got_auto = np.asarray(
-            table_lookup_auto(jnp.asarray(seg), jnp.asarray(tab))
-        )
-        np.testing.assert_array_equal(got_auto, expect)
 
-    def test_region_counts_mxu_wide_values(self):
-        """Regression: the MXU histogram cast values straight to int8, so an
-        8-bit class plane (e.g. value 200) wrapped to -56 while the scatter
-        path returned 200.  The digit split must be exact on the documented
-        [-16384, 16383] operand range."""
+    def test_region_counts_wide_values(self):
+        """8-bit and wider class values (200, 255, 16383) come back exact,
+        and signed per-region sums over the full int16 range match NumPy."""
+        import jax
+
         from particle_col_image_segmentation_tpu.ops.regionprops import (
             region_counts,
-        )
-        from particle_col_image_segmentation_tpu.ops.regionprops_tiles import (
-            region_counts_mxu,
-            region_sums_mxu,
         )
 
         rng = np.random.default_rng(11)
@@ -361,81 +306,47 @@ class TestScatterFreeTables:
         cls_of = rng.integers(0, 16384, R).astype(np.int32)
         cls_of[:4] = (200, 255, 1000, 16383)  # pin the wrap-prone cases
         img = cls_of[seg]
-        a0, c0 = region_counts(jnp.asarray(seg), jnp.asarray(img), R - 1)
-        a1, c1 = region_counts_mxu(
-            jnp.asarray(seg), jnp.asarray(img), R - 1,
-            rows_per_chunk=8, interpret=True,
+        area, cls = region_counts(jnp.asarray(seg), jnp.asarray(img), R - 1)
+        np.testing.assert_array_equal(
+            np.asarray(area), np.bincount(seg.ravel(), minlength=R)
         )
-        np.testing.assert_array_equal(np.asarray(a0), np.asarray(a1))
-        valid = np.asarray(a0) > 0
-        np.testing.assert_array_equal(np.asarray(c0)[valid], np.asarray(c1)[valid])
-        # signed sums: region_sums_mxu on values spanning the full range
+        valid = np.asarray(area) > 0
+        np.testing.assert_array_equal(np.asarray(cls)[valid], cls_of[valid])
         vals = rng.integers(-16384, 16384, (32, 128)).astype(np.int32)
-        area, vsum = region_sums_mxu(
-            jnp.asarray(seg), jnp.asarray(vals), R - 1, rows_per_chunk=8,
-            interpret=True,
-        )
-        import jax as _jax
-
-        ref = _jax.ops.segment_sum(
+        vsum = jax.ops.segment_sum(
             jnp.asarray(vals.ravel()), jnp.asarray(seg.ravel()), num_segments=R
         )
-        np.testing.assert_array_equal(np.asarray(vsum), np.asarray(ref))
+        ref = np.zeros(R, np.int64)
+        np.add.at(ref, seg.ravel(), vals.ravel())
+        np.testing.assert_array_equal(np.asarray(vsum), ref)
 
-    def test_digit_recombination_saturates_not_wraps(self):
-        """Regression: the base-128 (hi, lo) digits are int32-exact per
-        digit, but 128·Σhi + Σlo can exceed int32 for huge regions × large
-        values — the recombination must saturate to ±INT32_MAX detectably,
-        never wrap to an arbitrary small number."""
+    def test_coordinate_sums_exact_past_int32(self):
+        """One region whose row sum exceeds int32 (a 320×8192 band: Σrow
+        ≈ 2.7e8·... checked in int64): the (hi, lo) digit columns must
+        recombine to the exact sums, single-plane and batched."""
         from particle_col_image_segmentation_tpu.ops.regionprops import (
             HILO_BASE,
-        )
-        from particle_col_image_segmentation_tpu.ops.regionprops_tiles import (
-            _recombine_saturating,
-            region_sums_mxu,
+            centroid_sums,
         )
 
-        imax, imin = 2**31 - 1, -(2**31)
-        # (true_sum, expect) pairs spanning exact, boundary, and overflow
-        cases = [
-            (0, 0), (12345, 12345), (-99999, -99999),
-            (imax, imax), (imin, imin),            # exact boundary values
-            (imax + 1, imax), (imin - 1, imin),    # 1 past → saturate
-            (7 * 10**9, imax), (-7 * 10**9, imin),  # far past → saturate
-        ]
-        # decompose each true sum as plausible digit sums (lo ≥ 0, as the
-        # kernel produces: lo accumulates img % 128)
-        hi = np.array([s // HILO_BASE for s, _ in cases], np.int64)
-        lo = np.array([s % HILO_BASE for s, _ in cases], np.int64)
-        assert (lo >= 0).all() and (np.abs(hi) < 2**31).all()
-        got = np.asarray(_recombine_saturating(
-            jnp.asarray(hi, jnp.int32), jnp.asarray(lo, jnp.int32)
-        ))
-        np.testing.assert_array_equal(got, [e for _, e in cases])
-        # and some lo with large carries (lo up to 127·area, not < 128)
-        rng = np.random.default_rng(3)
-        # |hi| stays within the kernel's digit domain (≤ 128·plane_px)
-        true = rng.integers(-(2**36), 2**36, 64)
-        true[:2] = (imax, imin)
-        lo2 = rng.integers(0, 5 * 10**8, 64)
-        hi2, lo2 = (true - lo2) // HILO_BASE, lo2 + (true - lo2) % HILO_BASE
-        assert (128 * hi2 + lo2 == true).all() and (np.abs(hi2) < 2**31).all()
-        got2 = np.asarray(_recombine_saturating(
-            jnp.asarray(hi2, jnp.int32), jnp.asarray(lo2, jnp.int32)
-        ))
-        np.testing.assert_array_equal(got2, np.clip(true, imin, imax))
-        # end-to-end: one 320×512 region of value 16383 sums to 5.24e9
-        seg = np.zeros((320, 512), np.int32)
-        vals = np.full((320, 512), 16383, np.int32)
-        area, vsum = region_sums_mxu(
-            jnp.asarray(seg), jnp.asarray(vals), 4, rows_per_chunk=64,
-            interpret=True,
-        )
-        assert int(area[0]) == 320 * 512
-        assert int(vsum[0]) == imax  # saturated, not wrapped
+        H, W = 320, 8192
+        seg = np.ones((2, H, W), np.int32)
+        seg[1, : H // 2] = 2
+        ct = centroid_sums(jnp.asarray(seg), 3)
+        rows = np.arange(H, dtype=np.int64)[:, None] * np.ones((1, W), np.int64)
+        cols = np.ones((H, 1), np.int64) * np.arange(W, dtype=np.int64)[None]
+        for z in range(2):
+            for rid in (1, 2):
+                sel = seg[z] == rid
+                sr = HILO_BASE * int(ct.sr_hi[z, rid]) + int(ct.sr_lo[z, rid])
+                sc = HILO_BASE * int(ct.sc_hi[z, rid]) + int(ct.sc_lo[z, rid])
+                assert sr == int(rows[sel].sum()), (z, rid)
+                assert sc == int(cols[sel].sum()), (z, rid)
+                assert int(ct.area[z, rid]) == int(sel.sum())
+        assert int(cols[seg[0] == 1].sum()) > 2**31  # past int32 indeed
 
-    def test_fused_batch_auto_paths(self):
-        """fused_segment_batch on CPU exercises the fallback dispatch."""
+    def test_fused_batch_matches_oracle(self):
+        """fused_segment_batch: denoise + CCL + compaction per plane."""
         from particle_col_image_segmentation_tpu.config import AnalysisConfig
         from particle_col_image_segmentation_tpu.models.batch import (
             fused_segment_batch,
@@ -455,62 +366,46 @@ class TestScatterFreeTables:
             assert int(num[b]) == ref_n
             np.testing.assert_array_equal(np.asarray(seg[b]), ref)
 
-    def test_region_table_mxu_matches_scatter(self):
+    def test_region_table_batched_matches_per_plane(self):
         from particle_col_image_segmentation_tpu.ops import label_image, region_props
-        from particle_col_image_segmentation_tpu.ops.regionprops_tiles import (
-            region_table_mxu,
-        )
 
-        img = synthetic_label_plane(seed=19, shape=(64, 128))
-        seg, _ = label_image(jnp.asarray(img), background=-1, max_regions=2048)
-        t0 = region_props(seg, jnp.asarray(img), max_regions=2048)
-        for vb in (None, 7):  # general digit-split AND the narrow fast path
-            t1 = region_table_mxu(
-                seg, jnp.asarray(img), max_regions=2048, rows_per_chunk=8,
-                interpret=True, val_bound=vb,
-            )
-            v = np.asarray(t0.valid)
-            assert np.array_equal(np.asarray(t1.valid), v)
-            for f in ("area", "sr_hi", "sr_lo", "sc_hi", "sc_lo", "class_id",
-                      "bbox"):
+        imgs = [synthetic_label_plane(seed=s, shape=(64, 128)) for s in (19, 20)]
+        segs = [label_image(jnp.asarray(i), background=-1, max_regions=2048)[0]
+                for i in imgs]
+        tb = region_props(jnp.stack(segs), jnp.asarray(np.stack(imgs)),
+                          max_regions=2048)
+        for z in range(2):
+            t0 = region_props(segs[z], jnp.asarray(imgs[z]), max_regions=2048)
+            for f in t0._fields:
                 np.testing.assert_array_equal(
-                    np.asarray(getattr(t0, f))[v],
-                    np.asarray(getattr(t1, f))[v], err_msg=f,
+                    np.asarray(getattr(t0, f)), np.asarray(getattr(tb, f))[z],
+                    err_msg=f"{z}:{f}",
                 )
 
-    def test_region_sums_mxu(self):
-        from particle_col_image_segmentation_tpu.ops.regionprops_tiles import (
-            region_sums_mxu,
+    def test_region_counts_batched(self):
+        from particle_col_image_segmentation_tpu.ops.regionprops import (
+            region_counts,
         )
 
         rng = np.random.default_rng(8)
-        seg = rng.integers(0, 300, (32, 128)).astype(np.int32)
-        vals = rng.integers(0, 2, (32, 128)).astype(np.int32)  # overlap mask
-        area, vsum = region_sums_mxu(
-            jnp.asarray(seg), jnp.asarray(vals), 511, rows_per_chunk=8,
-            interpret=True,
-        )
-        import jax as _jax
-
-        ref_area = _jax.ops.segment_sum(
-            jnp.ones(seg.size, jnp.int32), jnp.asarray(seg.ravel()), num_segments=512
-        )
-        ref_sum = _jax.ops.segment_sum(
-            jnp.asarray(vals.ravel()), jnp.asarray(seg.ravel()), num_segments=512
-        )
-        np.testing.assert_array_equal(np.asarray(area), np.asarray(ref_area))
-        np.testing.assert_array_equal(np.asarray(vsum), np.asarray(ref_sum))
+        seg = rng.integers(0, 300, (3, 32, 128)).astype(np.int32)
+        vals = rng.integers(0, 2, (3, 32, 128)).astype(np.int32)
+        area, cls = region_counts(jnp.asarray(seg), jnp.asarray(vals), 511)
+        assert area.shape == (3, 512)
+        for z in range(3):
+            a0, c0 = region_counts(jnp.asarray(seg[z]), jnp.asarray(vals[z]), 511)
+            np.testing.assert_array_equal(np.asarray(area[z]), np.asarray(a0))
+            np.testing.assert_array_equal(np.asarray(cls[z]), np.asarray(c0))
+            np.testing.assert_array_equal(
+                np.asarray(a0), np.bincount(seg[z].ravel(), minlength=512)
+            )
 
     def test_centroid_sums_matches_region_props(self):
         """The 5-column CentroidTable (refine's table) must equal the same
-        columns of the full scatter table — scatter path, MXU kernel
-        (interpret), and the batched MXU variant."""
+        columns of the full table, single-plane and batched."""
         from particle_col_image_segmentation_tpu.ops.regionprops import (
             centroid_sums,
             region_props,
-        )
-        from particle_col_image_segmentation_tpu.ops.regionprops_tiles import (
-            centroid_sums_mxu,
         )
 
         cols = ("area", "sr_hi", "sr_lo", "sc_hi", "sc_lo")
@@ -520,22 +415,13 @@ class TestScatterFreeTables:
             jnp.asarray(seg), jnp.ones((64, 128), jnp.int32), 512
         )
         ct = centroid_sums(jnp.asarray(seg), 512)
-        ctm = centroid_sums_mxu(
-            jnp.asarray(seg), 512, rows_per_chunk=8, interpret=True
-        )
         for f in cols:
             np.testing.assert_array_equal(
                 np.asarray(getattr(full, f)), np.asarray(getattr(ct, f)),
                 err_msg=f,
             )
-            np.testing.assert_array_equal(
-                np.asarray(getattr(ct, f)), np.asarray(getattr(ctm, f)),
-                err_msg=f,
-            )
         segb = rng.integers(0, 300, (3, 64, 128)).astype(np.int32)
-        ctb = centroid_sums_mxu(
-            jnp.asarray(segb), 512, rows_per_chunk=8, interpret=True
-        )
+        ctb = centroid_sums(jnp.asarray(segb), 512)
         for z in range(3):
             ref = centroid_sums(jnp.asarray(segb[z]), 512)
             for f in cols:
@@ -544,89 +430,73 @@ class TestScatterFreeTables:
                     np.asarray(getattr(ctb, f))[z], err_msg=f"{z}:{f}",
                 )
 
-    def test_table_lookup_mxu(self):
-        from particle_col_image_segmentation_tpu.ops.regionprops_tiles import (
-            table_lookup_mxu,
+    def test_table_lookup(self):
+        from particle_col_image_segmentation_tpu.ops.regionprops import (
+            table_lookup,
         )
 
         rng = np.random.default_rng(3)
-        seg = rng.integers(0, 900, (32, 128)).astype(np.int32)
-        tab = rng.integers(0, 256, 900).astype(np.int32)
-        got = table_lookup_mxu(
-            jnp.asarray(seg), jnp.asarray(tab), rows_per_chunk=8, interpret=True
-        )
-        np.testing.assert_array_equal(np.asarray(got), tab[seg])
+        seg = rng.integers(0, 900, (2, 32, 128)).astype(np.int32)
+        tab = rng.integers(0, 256, (2, 900)).astype(np.int32)
+        got = np.asarray(table_lookup(jnp.asarray(seg), jnp.asarray(tab)))
+        for z in range(2):
+            np.testing.assert_array_equal(got[z], tab[z][seg[z]])
+        got0 = table_lookup(jnp.asarray(seg[0]), jnp.asarray(tab[0]))
+        np.testing.assert_array_equal(np.asarray(got0), tab[0][seg[0]])
 
 
-class TestBandSweepConvergence:
-    """Per-sweep convergence flags must not exit early on shapes needing many
-    alternating rounds (spiral = worst case for Gauss-Seidel sweeps)."""
+def _spiral(n):
+    """Rectangular spiral of 1s on a 0 background: ONE component whose
+    path winds through the whole plane (worst case for the fixpoints)."""
+    img = np.zeros((n, n), np.uint8)
+    top, bot, left, right = 0, n - 1, 0, n - 1
+    while left < right and top < bot:
+        img[top, left:right + 1] = 1
+        img[top:bot + 1, right] = 1
+        img[bot, left + 2:right + 1] = 1
+        img[top + 2:bot + 1, left + 2] = 1
+        top += 2
+        bot -= 2
+        left += 2
+        right -= 2
+    return img
+
+
+class TestFixpointConvergence:
+    """Convergence flags must neither exit early on shapes needing many
+    rounds nor stay silent when a budget runs out."""
 
     def test_spiral(self):
-        from particle_col_image_segmentation_tpu.ops.ccl import connected_components
-        from particle_col_image_segmentation_tpu.ops.ccl_tiles import ccl_sweeps
-
-        n = 64
-        img = np.zeros((n, n), np.uint8)
-        # rectangular spiral of 1s on a 0 background
-        top, bot, left, right = 0, n - 1, 0, n - 1
-        while left < right and top < bot:
-            img[top, left:right + 1] = 1
-            img[top:bot + 1, right] = 1
-            img[bot, left + 2:right + 1] = 1
-            img[top + 2:bot + 1, left + 2] = 1
-            top += 2
-            bot -= 2
-            left += 2
-            right -= 2
-        ref = np.asarray(connected_components(jnp.asarray(img), background=0,
-                                              max_iters=4096))
-        got = np.asarray(
-            ccl_sweeps(jnp.asarray(img), background=0, tile=8,
-                       max_sweeps=256, interpret=True)
+        img = _spiral(64)
+        got, conv = connected_components(
+            jnp.asarray(img), background=0, max_iters=4096, with_flag=True
         )
-        np.testing.assert_array_equal(got, ref)
+        assert bool(conv)
+        got = np.asarray(got)
+        np.testing.assert_array_equal(got, _oracle_raw(img, 0))
         # the whole spiral is ONE component
-        assert len(np.unique(ref[img == 1])) == 1
+        assert len(np.unique(got[img == 1])) == 1
 
     def test_nonconvergence_detected(self):
         """Regression: exhausted iteration budgets once exited SILENTLY with
         invalid labels; with_flag must report converged=False then."""
-        from particle_col_image_segmentation_tpu.ops.ccl import (
-            connected_components,
-        )
-        from particle_col_image_segmentation_tpu.ops.ccl_tiles import ccl_sweeps
-
         img = synthetic_label_plane(seed=13, shape=(64, 64))
         # ample budget → certified converged
-        _, conv = connected_components(
-            jnp.asarray(img), with_flag=True
-        )
+        _, conv = connected_components(jnp.asarray(img), with_flag=True)
         assert bool(conv)
         # starved budget → flagged, not silent
         _, conv = connected_components(
             jnp.asarray(img), max_iters=1, with_flag=True
         )
         assert not bool(conv)
-        # Gauss-Seidel sweeps converge on blob planes in one down+up pair;
-        # starve them with the spiral (many alternating rounds needed)
-        n = 32
-        sp = np.zeros((n, n), np.uint8)
-        top, bot, left, right = 0, n - 1, 0, n - 1
-        while left < right and top < bot:
-            sp[top, left:right + 1] = 1
-            sp[top:bot + 1, right] = 1
-            sp[bot, left + 2:right + 1] = 1
-            sp[top + 2:bot + 1, left + 2] = 1
-            top += 2; bot -= 2; left += 2; right -= 2
-        _, conv = ccl_sweeps(
-            jnp.asarray(sp), background=0, tile=8, max_sweeps=1,
-            interpret=True, with_flag=True,
+        # the spiral needs many rounds: one is not enough, the budget is
+        sp = _spiral(32)
+        _, conv = connected_components(
+            jnp.asarray(sp), background=0, max_iters=1, with_flag=True
         )
         assert not bool(conv)
-        _, conv = ccl_sweeps(
-            jnp.asarray(sp), background=0, tile=8, max_sweeps=256,
-            interpret=True, with_flag=True,
+        _, conv = connected_components(
+            jnp.asarray(sp), background=0, max_iters=256, with_flag=True
         )
         assert bool(conv)
 
@@ -649,37 +519,29 @@ class TestBandSweepConvergence:
                             jnp.asarray(m), max_iters=2, with_flag=True)
         assert not bool(conv)
 
-    def test_watershed_auto_budget_passthrough(self):
-        """watershed_auto exposes both schedule budgets; an exhausted
-        budget surfaces converged=False instead of a wrong answer."""
+    def test_refine_watershed_budget_passthrough(self):
+        """RefineConfig.watershed_max_iters reaches the watershed; an
+        exhausted budget surfaces converged=False instead of a wrong
+        answer."""
         from scipy import ndimage as ndi
 
-        from particle_col_image_segmentation_tpu.ops.watershed import (
-            watershed_auto,
+        from particle_col_image_segmentation_tpu.config import RefineConfig
+        from particle_col_image_segmentation_tpu.models.refine import (
+            refine_plane_device,
         )
 
-        # (64, 128): W=128 passes watershed_auto's lane-alignment gate, so
-        # on TPU the max_sweeps budget reaches the Pallas watershed_sweeps
-        # path (a 64-wide plane would silently fall back to XLA on every
-        # backend and never exercise the sweep-budget plumbing)
         hgt, wid = 64, 128
         m = np.zeros((hgt, wid), bool)
-        m[8:56, 8:120] = True
+        m[8:56, 8:60] = True
+        m[8:56, 68:120] = True
         dist = ndi.distance_transform_edt(m)
         prob = (1.0 - dist / max(1.0, dist.max())).astype(np.float32)
-        mk = np.zeros((hgt, wid), np.int32)
-        mk[32, 32] = 1
-        mk[32, 96] = 2
-        lab, conv = watershed_auto(
-            jnp.asarray(prob), jnp.asarray(mk), jnp.asarray(m),
-            with_flag=True, max_iters=1024, max_sweeps=32,
+        out = refine_plane_device(jnp.asarray(prob), RefineConfig(), 64)
+        assert bool(out[-1])
+        out = refine_plane_device(
+            jnp.asarray(prob), RefineConfig(watershed_max_iters=2), 64
         )
-        assert bool(conv)
-        _, conv = watershed_auto(
-            jnp.asarray(prob), jnp.asarray(mk), jnp.asarray(m),
-            with_flag=True, max_iters=2, max_sweeps=1,
-        )
-        assert not bool(conv)
+        assert not bool(out[-1])
 
     @pytest.mark.parametrize("k", [8, 64])
     def test_watershed_quantized_realistic_regime(self, k):
@@ -688,7 +550,7 @@ class TestBandSweepConvergence:
         flooding confined to the mask (refine_boundaries.py:60-73) — the
         kernel must stay ≥0.99 boundary IoU vs the oracle priority flood
         at every quantization level (the measured curve lives in
-        docs/PERF.md; the unconfined sparse-seed regime is documented
+        PERF.md; the unconfined sparse-seed regime is documented
         out-of-contract there)."""
         from scipy import ndimage as ndi
 
@@ -755,7 +617,7 @@ class TestWatershedTunnelBasins:
     def test_sparse_quantized_parity_lift(self):
         """Unconfined sparse point seeds on an 8-level-quantized noise
         relief — the regime documented out-of-contract for the default
-        key (docs/PERF.md: IoU ~0.4).  Basin contraction must converge
+        key (PERF.md: IoU ~0.4).  Basin contraction must converge
         AND lift boundary IoU vs the oracle by a wide margin
         (measured 0.41 → 0.83 at this exact fixture)."""
         from particle_col_image_segmentation_tpu.oracle import ndimage as ond
@@ -861,48 +723,31 @@ class TestWatershedTunnelBasins:
         np.testing.assert_array_equal(out[1], ond.watershed(img_b, markers))
 
 
-class TestPallasMedian:
+class TestMedianShapes:
+    """median_label_filter on widths, batches and window sizes beyond the
+    reference's 5×5 default, against scipy."""
+
     @pytest.mark.parametrize("shape", [(64, 128), (96, 256)])
     def test_matches_scipy(self, shape):
-        from particle_col_image_segmentation_tpu.ops.filters_tiles import (
-            median_label_filter_pallas,
-        )
-
         rng = np.random.default_rng(shape[0])
         img = rng.integers(0, 7, shape).astype(np.uint8)
-        got = np.asarray(
-            median_label_filter_pallas(jnp.asarray(img), tile=32, interpret=True)
-        )
+        got = np.asarray(median_label_filter(jnp.asarray(img)))
         np.testing.assert_array_equal(got, ndi.median_filter(img, size=5))
 
     def test_batched(self):
-        from particle_col_image_segmentation_tpu.ops.filters_tiles import (
-            median_label_filter_pallas,
-        )
-
         rng = np.random.default_rng(7)
         imgs = rng.integers(0, 8, (3, 64, 128)).astype(np.uint8)
-        got = np.asarray(
-            median_label_filter_pallas(jnp.asarray(imgs), tile=32, interpret=True)
-        )
+        got = np.asarray(median_label_filter(jnp.asarray(imgs)))
         ref = np.stack([ndi.median_filter(i, size=5) for i in imgs])
         np.testing.assert_array_equal(got, ref)
 
     @pytest.mark.parametrize("size", [3, 7, 9])
     def test_non_default_sizes(self, size):
-        """Regression: the horizontal taps/reflect fixes were once hardcoded
-        to size=5, silently wrong for any other size."""
-        from particle_col_image_segmentation_tpu.ops.filters_tiles import (
-            median_label_filter_pallas,
-        )
-
+        """Regression: the reflect padding was once hardcoded to size=5,
+        silently wrong for any other size."""
         rng = np.random.default_rng(100 + size)
         img = rng.integers(0, 6, (32, 128)).astype(np.uint8)
-        got = np.asarray(
-            median_label_filter_pallas(
-                jnp.asarray(img), size=size, tile=8, interpret=True
-            )
-        )
+        got = np.asarray(median_label_filter(jnp.asarray(img), size=size))
         np.testing.assert_array_equal(
             got, ndi.median_filter(img, size=size, mode="reflect")
         )

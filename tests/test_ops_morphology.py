@@ -80,66 +80,57 @@ class TestEDT:
         np.testing.assert_allclose(ours, np.round(ref))
 
 
-class TestPallasCappedEDT:
-    """edt_sq_pallas (single-pass VMEM band kernel) must be bit-identical to
-    edt_sq — both compute the exact capped transform (interpret mode here;
-    the chip probe re-checked bit-parity on hardware, docs/PERF.md)."""
+class TestCappedEDT:
+    """edt_sq against scipy on batches, degenerate densities and caps past
+    the small-cap tap path: exact up to the cap, saturated beyond it."""
 
-    @pytest.mark.parametrize("seed,shape,cap,tile", [
-        (0, (64, 128), 32, 16),
-        (1, (2, 64, 128), 20, 8),
-        (2, (128, 256), 9, 64),
-        (3, (3, 48, 128), 32, 16),
+    @staticmethod
+    def _check(m, cap, got):
+        planes = m.reshape((-1,) + m.shape[-2:])
+        got = got.reshape(planes.shape)
+        c1 = (cap + 1) ** 2
+        for f, g in zip(planes, got):
+            ref = (
+                ndi.distance_transform_edt(~f) ** 2 if f.any()
+                else np.full(f.shape, np.inf)
+            )
+            np.testing.assert_array_equal(g, np.minimum(np.round(ref), c1))
+
+    @pytest.mark.parametrize("seed,shape,cap", [
+        (0, (64, 128), 32),
+        (1, (2, 64, 128), 20),
+        (2, (128, 256), 9),
+        (3, (3, 48, 128), 32),
     ])
-    def test_bit_equal_to_xla(self, seed, shape, cap, tile):
-        from particle_col_image_segmentation_tpu.ops.edt_tiles import (
-            edt_sq_pallas,
-        )
-
+    def test_matches_scipy(self, seed, shape, cap):
         rng = np.random.default_rng(seed)
         m = rng.random(shape) < 0.02
-        a = np.asarray(edt_sq(jnp.asarray(m), cap=cap))
-        b = np.asarray(
-            edt_sq_pallas(jnp.asarray(m), cap=cap, tile=tile, interpret=True)
-        )
-        np.testing.assert_array_equal(a, b)
+        self._check(m, cap, np.asarray(edt_sq(jnp.asarray(m), cap=cap)))
 
     @pytest.mark.parametrize("dens", [0.0, 1.0, 0.5])
     def test_degenerate_densities(self, dens):
-        from particle_col_image_segmentation_tpu.ops.edt_tiles import (
-            edt_sq_pallas,
-        )
-
         rng = np.random.default_rng(7)
         m = rng.random((64, 128)) < dens
-        a = np.asarray(edt_sq(jnp.asarray(m), cap=20))
-        b = np.asarray(
-            edt_sq_pallas(jnp.asarray(m), cap=20, tile=16, interpret=True)
-        )
-        np.testing.assert_array_equal(a, b)
+        self._check(m, 20, np.asarray(edt_sq(jnp.asarray(m), cap=20)))
 
     def test_plane_isolation(self):
         """A feature-dense plane must not leak distances into its batch
-        neighbors (per-plane slot pads carry feature=0)."""
-        from particle_col_image_segmentation_tpu.ops.edt_tiles import (
-            edt_sq_pallas,
-        )
-
+        neighbors."""
         m = np.zeros((2, 64, 128), bool)
         m[0] = True  # plane 0 all-feature; plane 1 empty
-        b = np.asarray(edt_sq_pallas(jnp.asarray(m), cap=20, tile=16,
-                                     interpret=True))
+        b = np.asarray(edt_sq(jnp.asarray(m), cap=20))
         assert (b[0] == 0).all()
         assert (b[1] == 21 * 21).all()  # saturated, no leak from plane 0
 
-    def test_auto_dispatch_cpu_matches(self):
-        from particle_col_image_segmentation_tpu.ops.edt_tiles import (
-            edt_sq_auto,
-        )
+    def test_large_cap_matches_exact(self):
+        """A cap beyond the plane's deepest distance gives the exact
+        transform (the certified-exact EDT's fast-path identity)."""
+        from particle_col_image_segmentation_tpu.ops.edt import edt_sq_exact
 
         m = random_binary((80, 80), p=0.04, seed=5)
-        a = np.asarray(edt_sq(jnp.asarray(m), cap=20))
-        b = np.asarray(edt_sq_auto(jnp.asarray(m), cap=20))
+        a = np.asarray(edt_sq(jnp.asarray(m), cap=64))
+        b = np.asarray(edt_sq_exact(jnp.asarray(m)))
+        assert b.max() <= 64 * 64
         np.testing.assert_array_equal(a, b)
 
 
@@ -252,14 +243,9 @@ class TestLocalMaxima:
 
     @pytest.mark.parametrize("seed", [0, 3])
     @pytest.mark.parametrize("connectivity", [1, 2])
-    def test_sweeps_path_matches_flood(self, seed, connectivity):
-        """The Pallas band-sweep path (min_propagate plateau resolve) must
-        be bit-identical to the XLA scan flood AND the oracle — interpret
-        mode on CPU, batched, on an EDT-like integer image with plateaus."""
-        from particle_col_image_segmentation_tpu.ops.morphology import (
-            _local_maxima_sweeps,
-        )
-
+    def test_batched_integer_edt_matches_oracle(self, seed, connectivity):
+        """Refine's input: a batch of integer squared-EDT planes with
+        plateaus; every plane must match the oracle, flagged converged."""
         planes = []
         for b in range(2):
             m = random_binary((128, 128), p=0.03, seed=seed + 7 * b)
@@ -268,15 +254,11 @@ class TestLocalMaxima:
                 np.round(ndi.distance_transform_edt(m) ** 2).astype(np.int32)
             )
         dsq = jnp.asarray(np.stack(planes))
-        flood = np.asarray(local_maxima(dsq, connectivity=connectivity))
-        sweeps, conv = _local_maxima_sweeps(
-            dsq, connectivity, True, tile=32, max_sweeps=16, interpret=True
-        )
+        got, conv = local_maxima(dsq, connectivity=connectivity, with_flag=True)
         assert bool(np.asarray(conv).all())
-        np.testing.assert_array_equal(np.asarray(sweeps), flood)
         for b in range(2):
             np.testing.assert_array_equal(
-                np.asarray(sweeps)[b],
+                np.asarray(got)[b],
                 ond.local_maxima(
                     planes[b].astype(np.float64),
                     connectivity=connectivity,
@@ -309,32 +291,30 @@ def _iou(a, b):
     return np.sum(a & b) / max(1, np.sum(a | b))
 
 
-class TestWatershedBandSweeps:
-    """The Pallas two-phase band watershed must be bit-identical to the XLA
-    kernel on every relief, including the schedule-divergence stress case
-    (random noise, where a joint cost+label relaxation would differ)."""
+class TestWatershedBatched:
+    """A [B, H, W] batch floods in one fixpoint loop; every plane must be
+    bit-identical to its own single-plane run, including the
+    schedule-divergence stress case (random noise relief)."""
 
     @pytest.mark.parametrize("seed", [0, 1])
-    def test_random_relief_bit_parity(self, seed):
-        from particle_col_image_segmentation_tpu.ops.watershed_tiles import (
-            watershed_sweeps,
-        )
-
+    def test_random_relief_batch_matches_single(self, seed):
         rng = np.random.default_rng(seed)
-        img = rng.random((64, 64)).astype(np.float32)
-        mk = np.zeros((64, 64), np.int32)
-        mk[10, 10] = 2
-        mk[50, 50] = 1
-        mk[30, 60] = 3
-        ref = np.asarray(watershed(jnp.asarray(img), jnp.asarray(mk)))
-        got = np.asarray(
-            watershed_sweeps(jnp.asarray(img), jnp.asarray(mk), tile=32, interpret=True)
-        )
-        np.testing.assert_array_equal(got, ref)
+        img = rng.random((2, 64, 64)).astype(np.float32)
+        mk = np.zeros((2, 64, 64), np.int32)
+        mk[:, 10, 10] = 2
+        mk[:, 50, 50] = 1
+        mk[:, 30, 60] = 3
+        got, conv = watershed(jnp.asarray(img), jnp.asarray(mk),
+                              with_flag=True)
+        assert bool(np.asarray(conv).all())
+        for b in range(2):
+            ref = np.asarray(watershed(jnp.asarray(img[b]), jnp.asarray(mk[b])))
+            np.testing.assert_array_equal(np.asarray(got)[b], ref)
+            assert (ref > 0).all()
 
-    def test_masked_structured_bit_parity(self):
-        from particle_col_image_segmentation_tpu.ops.watershed_tiles import (
-            watershed_sweeps,
+    def test_masked_structured_matches_oracle(self):
+        from particle_col_image_segmentation_tpu.utils.metrics import (
+            boundary_iou,
         )
 
         m = np.zeros((96, 96), bool)
@@ -345,26 +325,16 @@ class TestWatershedBandSweeps:
         mk = np.zeros((96, 96), np.int32)
         mk[48, 30] = 1
         mk[48, 66] = 2
-        ref = np.asarray(watershed(jnp.asarray(relief), jnp.asarray(mk), jnp.asarray(m)))
         got = np.asarray(
-            watershed_sweeps(
-                jnp.asarray(relief), jnp.asarray(mk), jnp.asarray(m),
-                tile=32, interpret=True,
-            )
+            watershed(jnp.asarray(relief), jnp.asarray(mk), jnp.asarray(m))
         )
-        np.testing.assert_array_equal(got, ref)
         assert (got[~m] == 0).all() and (got[m] > 0).all()
+        orc = ond.watershed(relief, mk, mask=m)
+        assert boundary_iou(got, orc) >= 0.99
 
     def test_batched_planes_stay_isolated(self):
-        """Batched planes pack contiguously into one pallas launch; the
-        plane-boundary masking must keep every plane bit-identical to its
-        OWN single-plane run — including a plane whose basin touches the
-        packing boundary, which would flood into the neighbor if halo rows
-        weren't masked to sentinels."""
-        from particle_col_image_segmentation_tpu.ops.watershed_tiles import (
-            watershed_sweeps,
-        )
-
+        """A plane whose basin touches the plane edge must not flood into
+        its batch neighbor, and a masked strip at the edge stays 0."""
         rng = np.random.default_rng(7)
         planes, marks, masks = [], [], []
         for b in range(3):
@@ -378,31 +348,25 @@ class TestWatershedBandSweeps:
             mk[55, 100 - 9 * b] = 4 + b
             m = np.ones((64, 128), bool)
             if b == 2:
-                m[:4, :] = False  # masked-out strip at a packing boundary
+                m[:4, :] = False  # masked-out strip at the plane edge
             planes.append(img)
             marks.append(mk)
             masks.append(m)
-        got, conv = watershed_sweeps(
+        got, conv = watershed(
             jnp.asarray(np.stack(planes)), jnp.asarray(np.stack(marks)),
-            jnp.asarray(np.stack(masks)), tile=32, interpret=True,
-            with_flag=True,
+            jnp.asarray(np.stack(masks)), with_flag=True,
         )
         assert conv.shape == (3,) and bool(np.asarray(conv).all())
         for b in range(3):
             single = np.asarray(
-                watershed_sweeps(
-                    jnp.asarray(planes[b]), jnp.asarray(marks[b]),
-                    jnp.asarray(masks[b]), tile=32, interpret=True,
-                )
-            )
-            np.testing.assert_array_equal(np.asarray(got)[b], single)
-            xla = np.asarray(
                 watershed(
                     jnp.asarray(planes[b]), jnp.asarray(marks[b]),
                     jnp.asarray(masks[b]),
                 )
             )
-            np.testing.assert_array_equal(np.asarray(got)[b], xla)
+            np.testing.assert_array_equal(np.asarray(got)[b], single)
+            assert set(np.unique(single[masks[b]])) == {1 + b, 4 + b}
+        assert (np.asarray(got)[2][:4] == 0).all()
 
 
 class TestWatershed:
@@ -599,10 +563,9 @@ class TestOpenCloseThreshold:
         assert 100 < got < 160  # separates the two modes
 
     def test_otsu_batch_matches_single(self):
-        """otsu_threshold_batch (scatter-free histogram path on TPU, vmapped
-        scatter elsewhere) must be bit-identical to per-plane otsu_threshold
-        — same bin indices, counts, and reduction (the chip probe re-checked
-        the MXU path on hardware, docs/PERF.md)."""
+        """otsu_threshold_batch (vmapped histogram scatter) must be
+        bit-identical to per-plane otsu_threshold — same bin indices,
+        counts, and reduction."""
         from particle_col_image_segmentation_tpu.ops.threshold import (
             otsu_threshold,
             otsu_threshold_batch,
@@ -687,31 +650,32 @@ class TestOpenCloseThreshold:
         assert int(count[0]) <= 16
 
 
-class TestPallasFill:
-    def test_matches_edt_path(self):
-        """The fused particle-fill kernel must reproduce the EDT+masks path
-        (reference fill_particle_area criteria, tiff_analysis.py:982-1015)."""
-        import jax.numpy as jnp
-
-        from particle_col_image_segmentation_tpu.ops.edt import edt_sq
-        from particle_col_image_segmentation_tpu.ops.fill_tiles import (
-            particle_fill_step_pallas,
+class TestParticleFill:
+    def test_matches_scipy_criteria(self):
+        """The fill stage reproduces the reference fill_particle_area
+        criteria (tiff_analysis.py:982-1015) with scipy's EDT, strains in
+        sequence: pixels absorbed for one strain grow the particle mask the
+        next strain sees."""
+        from particle_col_image_segmentation_tpu.config import AnalysisConfig
+        from particle_col_image_segmentation_tpu.labels.analysis import (
+            _stage_fill,
         )
 
-        from fixtures import synthetic_label_plane
-
+        cfg = AnalysisConfig()
         for seed in (11, 12):
             img = synthetic_label_plane(seed=seed, shape=(64, 128)).astype(np.uint8)
-            cap, dt2, dr2 = 20, 4, 400
-            pm = img == 2
-            d2 = np.asarray(edt_sq(jnp.asarray(pm), cap=cap))
-            ov = (img == 1) & ((d2 < dt2) | (d2 <= dr2))
-            ref = np.where(ov, 2, img).astype(np.uint8)
-            got, cnt = particle_fill_step_pallas(
-                jnp.asarray(img), 2, 1, cap, dt2, dr2, tile=8, interpret=True
+            got, counts = _stage_fill(
+                jnp.asarray(img), cfg=cfg, particle_val=2, strain_vals=(1, 3)
             )
+            ref = img.copy()
+            for k, sval in enumerate((1, 3)):
+                d = ndi.distance_transform_edt(ref != 2)
+                ov = (ref == sval) & (
+                    (d < cfg.distance_threshold) | (d <= cfg.dilation_radius)
+                )
+                assert int(counts[k]) == int(ov.sum())
+                ref = np.where(ov, 2, ref).astype(np.uint8)
             np.testing.assert_array_equal(np.asarray(got), ref)
-            assert int(cnt) == int(ov.sum())
 
 
 class TestPairwise:
@@ -737,8 +701,8 @@ class TestPairwise:
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
 
     def test_large_coordinates_stay_exact(self):
-        """Regression: the ‖a‖²+‖b‖²−2abᵀ matmul form truncated operands to
-        bf16 on TPU AND cancelled catastrophically in f32 for large-plane
+        """Regression: the ‖a‖²+‖b‖²−2abᵀ matmul form is exposed to reduced
+        matmul precision AND cancelled catastrophically in f32 for large-plane
         centroids (terms ~|a||b| > 2²⁴ round at ≥ 1 px²) — a 1 px NN
         distance at coordinate ~3000 came back off by whole pixels.  The
         difference form must be exact at every coordinate magnitude."""

@@ -105,7 +105,7 @@ class TestDilationEDT:
     @pytest.mark.parametrize("r", [1, 2, 5, 20])
     @pytest.mark.parametrize("seed", [0, 1])
     def test_disk_dilation_equals_edt_threshold(self, r, seed):
-        """dilate(X, disk(r)) == EDT(~X) <= r — the identity the TPU kernels use."""
+        """dilate(X, disk(r)) == EDT(~X) <= r — the identity the device kernels use."""
         x = random_binary((96, 96), p=0.05, seed=seed)
         dil = ond.binary_dilation(x, ond.disk(r))
         edt = ndi.distance_transform_edt(~x)

@@ -258,7 +258,7 @@ class TestWatershedHandGoldens:
 
     def test_quantized_basin_tunnels_wave(self):
         # THE quantized-plateau mechanism behind the sparse-seed IoU gap
-        # (docs/PERF.md round-3 watershed section): a basin below the
+        # (PERF.md round-3 watershed section): a basin below the
         # plateau level acts as a TUNNEL — pops at img < level jump the
         # queue, so a wave that touches a basin rim floods the whole basin
         # and re-enters the plateau within ~one BFS round, regardless of
